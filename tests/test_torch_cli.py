@@ -72,6 +72,54 @@ def test_simulated_set_matches_jax_package(tmp_path, monkeypatch):
     assert open(outs["port"], "rb").read() == want
 
 
+def test_cli_long_set_matches_jax_package(tmp_path, device_forced):
+    """Four simulated 2200-column sequences: every pair is longer than the
+    2048 bucket and runs in long launches (the plain version on CPU
+    tensors); the output equals the JAX package's --backend native run."""
+    prefix = _simulate(tmp_path, n=4, length=2200, seed=5)
+    args = ["-t", prefix + ".nwk", "-i", prefix + ".fa"]
+    want, got = str(tmp_path / "native.aln"), str(tmp_path / "port.aln")
+    assert tpu_cli.main(args + ["-o", want, "--backend", "native"]) == 0
+    rc, kernel = cli.run(args + ["-o", got, "--backend", "cpu"])
+    assert rc == 0
+    st = kernel.stats
+    assert st["pairs_on_device"] == st["pairs"] - st["zero_length"] == 3
+    assert st["long_launches"] >= 2 and st["host_wide"] == 0
+    assert _md5(got) == _md5(want)
+
+
+def test_host_kernel_load_race_repaired(tmp_path):
+    """The native host kernel loads lazily, and talco_host marks it checked
+    before the library is bound, so a first-level pool thread that asks
+    meanwhile runs the NumPy oracle. With the load slowed by 0.3 s and
+    the oracle's calls counted, a --backend native run of the port's
+    command line (which loads the library on its main thread first) makes
+    no oracle call."""
+    prefix = _simulate(tmp_path, n=8, length=400, seed=5)
+    code = (
+        "import time\n"
+        "from twilight_tpu.ops import talco_host, talco_np\n"
+        "load = talco_host.load\n"
+        "def slow_load(name):\n"
+        "    time.sleep(0.3)\n"
+        "    return load(name)\n"
+        "talco_host.load = slow_load\n"
+        "calls = []\n"
+        "oracle = talco_np.align_freq\n"
+        "def counted(*a, **k):\n"
+        "    calls.append(1)\n"
+        "    return oracle(*a, **k)\n"
+        "talco_np.align_freq = counted\n"
+        "from twilight_tpu_torch.cli import main\n"
+        f"rc = main(['-t', {prefix + '.nwk'!r}, '-i', {prefix + '.fa'!r},"
+        f" '-o', {str(tmp_path / 'o.aln')!r}, '--backend', 'native',"
+        " '--cpu', '4'])\n"
+        "print('RC', rc, 'ORACLE_CALLS', len(calls))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert "RC 0 ORACLE_CALLS 0" in r.stdout, (r.stdout, r.stderr[-1000:])
+
+
 def test_main_never_imports_jax(tmp_path):
     prefix = _simulate(tmp_path, n=8, length=60, seed=3)
     code = (

@@ -159,6 +159,7 @@ def test_collect_ladder_and_host_fallback(task):
     assert results[0].dtype == np.int8
     assert finals[3] is None and finals[4] is None
     assert batcher.stats["err3_fallbacks"] == 2
+    assert batcher.stats["task0_errors"] == (2 if task == 0 else 0)
     if task == 0:
         assert pending == [] and finals[1] is None and finals[2] is None
     else:
@@ -210,15 +211,15 @@ class _DB:
 
 def test_batcher_on_cpu_tensors_matches_host_kernel(monkeypatch):
     """A level through the batcher on CPU tensors (the plain version):
-    leaf and freq launches, a zero-length pair and a pair too long for
-    the device bucket, each equal to the host ladder's path."""
+    leaf and freq launches, a zero-length pair and a pair longer than the
+    2048 bucket (a long launch), each equal to the host ladder's path."""
     monkeypatch.setenv("TWILIGHT_NO_STEAL", "1")
     rng = np.random.default_rng(5)
     opt = Options(device_backend="cpu", type="n", pair_batch=2)
     param = Params.make("n")
     prepared, metas = _prepared(rng, 6, 5, lens=[(60, 70), (90, 80),
                                                  (50, 55), (40, 45),
-                                                 (2100, 30)])
+                                                 (2100, 2080)])
     # a leaf pair: unit weights and the scalar gap scores (a raw sequence
     # has no gaps to make them position-specific)
     metas[0] = (60, 70, 1, 1)
@@ -235,8 +236,8 @@ def test_batcher_on_cpu_tensors_matches_host_kernel(monkeypatch):
     assert set(finals) == {0, 1, 2, 3, 4}
     assert res[3] is None
     st = batcher.stats
-    assert (st["pairs"], st["zero_length"], st["host_long"],
-            st["pairs_on_device"], st["host_stolen"]) == (5, 1, 1, 3, 0)
+    assert (st["pairs"], st["zero_length"], st["long_launches"],
+            st["pairs_on_device"], st["host_stolen"]) == (5, 1, 1, 4, 0)
     for i in (0, 1, 2, 4):
         want = batcher._host_align(prepared[i], metas[i], 0)
         np.testing.assert_array_equal(res[i], want)

@@ -227,6 +227,103 @@ def test_plain_version_matches_pallas_g8_interpret(leaf):
     assert compared >= b // 2
 
 
+def test_plain_version_matches_pallas_g8_hbm_in_interpret():
+    """K4: the grouped Pallas kernel's long-sequence variant (padlen above
+    2048: profiles in HBM, anchor-window staging) in interpret mode, batch
+    8 at launch padlen 4096, against the plain version at the same padlen
+    (the port's long route); error-6 pairs are not compared."""
+    rng = np.random.default_rng(23)
+    param = Params.make("n")
+    mat = param.scoring_matrix.astype(np.float32)
+    padlen, b, marker = 4096, 8, 64
+    cases = [c[:3] + (4096, 5000)
+             for c in make_cases(rng, 6, False, b, maxlen=120)]
+    cases[-1] = cases[-1][:3] + (8, 5000)      # a binding ladder width
+    kern, _, off, tot = talco_pallas_g8.get_pallas_kernel_g8(
+        padlen, 128, 6, marker, mat.tobytes(), param.matrix_size, b,
+        interpret=True, grp=8)
+    assert (off, tot) == (0, padlen)
+    rl = np.array([len(c[0]) for c in cases], np.int32)
+    ql = np.array([len(c[1]) for c in cases], np.int32)
+    ref_b = np.zeros((b, 8, tot), np.float32)
+    qry_b = np.zeros((b, 8, tot), np.float32)
+    for i, (fr, fq, _, _, _) in enumerate(cases):
+        go, ge = gap_rows(rl[i], ql[i])
+        talco_pallas.pack_pair_into(ref_b[i], qry_b[i], fr, fq, go, ge,
+                                    padlen, off)
+    nums = np.array([c[2] for c in cases], np.float32)
+    res = kern(rl, ql, nums, nums,
+               np.array([c[3] for c in cases], np.int32),
+               np.array([c[4] for c in cases], np.int32),
+               np.full(b, GE, np.float32), np.full(b, GO, np.float32),
+               np.full(b, GE, np.float32), ref_b, qry_b)
+    g_out, g_tail = np.asarray(res[0]), np.asarray(res[1])
+
+    ints, floats, offs, ref, qry = pack(cases, 6, False, GE, marker,
+                                        padlen=padlen)
+    np.testing.assert_array_equal(ref.numpy(), ref_b)
+    paths, tail = talco_cuda.talco_align(
+        ints, floats, offs, ref, qry, torch.from_numpy(mat), p=6,
+        marker=marker, scratch_bytes=int(offs[-1]))
+    compared, errs = 0, set()
+    for i in range(b):
+        if g_tail[i, 1] == 6:
+            continue
+        compared += 1
+        errs.add(int(g_tail[i, 1]))
+        assert tail[i, :2].tolist() == g_tail[i, :2].tolist(), f"pair {i}"
+        n = int(g_tail[i, 0])
+        np.testing.assert_array_equal(paths[i, :n].numpy(), g_out[i, :n])
+    assert compared >= b // 2
+    assert 0 in errs
+
+
+def test_plain_version_matches_pallas_single_pair_interpret():
+    """K5: the single-pair Pallas kernel (talco_pallas.get_pallas_kernel,
+    the route of ladder widths above the grouped kernel's cap) in
+    interpret mode, against the plain version. The ladder width binds on
+    some pairs, so error 2 is compared too; error-6 pairs (band past the
+    TPU kernel's static window) are not compared."""
+    rng = np.random.default_rng(31)
+    m = nuc_matrix()
+    padlen, flen_w, marker = 256, 128, 1024
+    cases = make_cases(rng, 6, False, 4, maxlen=120)
+    kern, maxaln = talco_pallas.get_pallas_kernel(
+        padlen, flen_w, 6, marker, m.tobytes(), 6, len(cases),
+        interpret=True)
+    b = len(cases)
+    tot = flen_w + padlen + flen_w + 128
+    ref_b = np.zeros((b, 8, tot), np.float32)
+    qry_b = np.zeros((b, 8, tot), np.float32)
+    rl = np.array([len(c[0]) for c in cases], np.int32)
+    ql = np.array([len(c[1]) for c in cases], np.int32)
+    for i, (fr, fq, _, _, _) in enumerate(cases):
+        go, ge = gap_rows(rl[i], ql[i])
+        talco_pallas.pack_pair_into(ref_b[i], qry_b[i], fr, fq, go, ge,
+                                    padlen, flen_w)
+    nums = np.array([c[2] for c in cases], np.float32)
+    (out,) = kern(rl, ql, nums, nums,
+                  np.array([c[3] for c in cases], np.int32),
+                  np.array([c[4] for c in cases], np.int32),
+                  np.full(b, GE, np.float32), np.full(b, GO, np.float32),
+                  np.full(b, GE, np.float32), ref_b, qry_b)
+    out = np.asarray(out)[:, 0]
+    paths, tail = run_port(cases, 6, False, GE, marker)
+    compared, errs = 0, set()
+    for i in range(b):
+        n, e = int(out[i, maxaln - 128]), int(out[i, maxaln - 127])
+        if e == 6:
+            continue
+        compared += 1
+        errs.add(e)
+        assert int(tail[i, 1]) == e, f"pair {i}"
+        if e == 0:      # (on an error the TPU kernel leaves a partial len)
+            assert int(tail[i, 0]) == n
+            np.testing.assert_array_equal(paths[i, :n], out[i, :n])
+    assert compared >= b // 2
+    assert 2 in errs and 0 in errs, errs
+
+
 def test_wrapper_rejects_bad_inputs():
     rng = np.random.default_rng(3)
     cases = make_cases(rng, 6, False, 2)
@@ -244,9 +341,19 @@ def test_wrapper_rejects_bad_inputs():
     meta = [t.to("meta") for t in (ints, floats, offs, ref, qry, mat)]
     with pytest.raises(ValueError, match="unsupported device"):
         talco_cuda.talco_align(*meta, **kw)
-    big = torch.zeros((2, 8, 4096))
-    with pytest.raises(NotImplementedError, match="K4"):
-        talco_cuda.talco_align(ints, floats, offs, big, big, mat, **kw)
+    empty = torch.zeros((2, 8, 0))
+    with pytest.raises(ValueError, match="padlen"):
+        talco_cuda.talco_align(ints, floats, offs, empty, empty, mat, **kw)
+    # any padlen is accepted; a pair longer than the launch's padlen gets
+    # the layout check's error, as the kernel gives it, and the other
+    # pairs of the launch are unaffected
+    _, want = talco_cuda.talco_align(ints, floats, offs, ref, qry, mat, **kw)
+    long_ints = ints.clone()
+    long_ints[0, 0] = PADLEN + 1
+    _, tail = talco_cuda.talco_align(long_ints, floats, offs, ref, qry, mat,
+                                     **kw)
+    assert tail[0].tolist() == [0, talco_cuda.ERR_LAYOUT, 0, 0]
+    assert tail[1].tolist() == want[1].tolist()
     assert talco_cuda.talco_align.launches == 0   # no kernel on the CPU
 
 

@@ -18,6 +18,7 @@ import torch
 
 from twilight_tpu import cli as tpu_cli
 from twilight_tpu.config import Params
+from twilight_tpu.ops import talco_host
 from twilight_tpu.pipeline import modes
 
 from .ops.device_kernel import make_device_kernel
@@ -103,6 +104,12 @@ def run(argv=None):
         except RuntimeError as e:
             print(f"ERROR: {e}", file=sys.stderr)
             return 1, None
+    if opt.device_backend != "numpy":
+        # load the native host kernel here, on the main thread: the first
+        # level's pool threads would otherwise race its lazy load
+        # (talco_host.get_lib marks it checked before the library is
+        # bound), and a thread that loses runs the NumPy oracle instead
+        talco_host.get_lib()
     prof = None
     if args.profile_trace and kernel is not None:
         from torch.profiler import ProfilerActivity, profile

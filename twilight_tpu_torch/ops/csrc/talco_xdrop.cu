@@ -1,14 +1,23 @@
 // TALCO-XDrop profile-profile alignment: CUDA kernel for Hopper (sm_90a).
 //
-// Replaces the grouped Pallas TPU kernel twilight_tpu/ops/talco_pallas_g8.py
-// (get_pallas_kernel_g8, pallas_call at :1672): the freq route
-// (_make_kernel(leaf=False), similarity :230), the leaf route (leaf=True,
-// similarity_leaf :215) and the work of the escalated-window variant
-// (hbm_tb=True). Semantics are those of the NumPy oracle
-// (twilight_tpu/ops/talco_np.py: tile :166, align_freq :456, _traceback
-// :103) and of twilight_tpu/native/talco.cpp: band-relative rolling rows
-// with ftr_length/ftr_lower_limit bookkeeping, the same f32 operations in
-// the same order (build with -fmad=false; '/' is IEEE division), the same
+// Replaces the TPU kernels of the JAX package, as size variants of this one
+// template:
+// - twilight_tpu/ops/talco_pallas_g8.py (get_pallas_kernel_g8, pallas_call
+//   at :1672): the freq route (_make_kernel(leaf=False), similarity :230),
+//   the leaf route (leaf=True, similarity_leaf :215), the work of the
+//   escalated-window variant (hbm_tb=True) and the long-sequence variant
+//   (hbm_in=True: padlen above 2048, profiles in HBM with anchor-window
+//   DMA staging). Here the profiles are always read from global memory at
+//   padlen-1-rpos / qpos, so any padlen is the same code.
+// - twilight_tpu/ops/talco_pallas.py (get_pallas_kernel, pallas_call at
+//   :579): one pair per program for ladder widths above 4096 and padlen
+//   above 32768. Here each pair's scratch is sized from its own width, so
+//   a wide pair is a launch with a larger scratch, not another kernel.
+// Semantics are those of the NumPy oracle (twilight_tpu/ops/talco_np.py:
+// tile :166, align_freq :456, _traceback :103) and of
+// twilight_tpu/native/talco.cpp: band-relative rolling rows with
+// ftr_length/ftr_lower_limit bookkeeping, the same f32 operations in the
+// same order (build with -fmad=false; '/' is IEEE division), the same
 // tie-breaks, and the same stale-buffer reads (clipped to the tile's flen).
 //
 // Design: one thread block per pair. The block's threads stride over the
@@ -20,12 +29,18 @@
 // What bounds it: each pair's anti-diagonals run in sequence, and each
 // costs two block barriers plus one pass over the live band, so a pair is
 // latency-bound (the band is a few hundred cells) and the card is filled
-// only by the batch's pairs (one block each, 128 per launch on 132 SMs).
-// The profiles (P+P f32 per cell), the rolling rows and the traceback store
-// live in global memory, where neighbouring threads read neighbouring
-// addresses; each pair's scratch is sized from its own tile-width bound
-// w = min(flen, ref_len, qry_len), so no static window overflows (the TPU
-// kernel's error 6 cannot occur).
+// only by the batch's pairs (one block each). The profiles (P+P f32 per
+// cell), the rolling rows and the traceback store live in global memory,
+// where neighbouring threads read neighbouring addresses; each pair's
+// scratch is sized from its own tile-width bound w = min(flen, ref_len,
+// qry_len), so no static window overflows (the TPU kernels' error 6 cannot
+// occur).
+//
+// Index widths: profile, path and scratch addresses are size_t or 64-bit
+// offsets; a tile's traceback addresses (at most (marker+1)*w bytes, 33.6
+// MB at w = 32768) and path lengths (at most rl+ql <= 2*padlen) are int,
+// and the layout check refuses a pair whose traceback store would not fit
+// an int. dp_cells is counted in 64 bits and saturates at INT32_MAX.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -207,6 +222,8 @@ __global__ void __launch_bounds__(NT) talco_xdrop_kernel(Batch a) {
 
     const long long base = a.offs[b];
     if (rl < 1 || ql < 1 || rl > padlen || ql > padlen || flen_param < 1
+            || (long long)(marker + 1) * min(flen_param, min(rl, ql))
+                > INT_MAX
             || base < 0 || base + pair_need(rl, ql, flen_param, marker)
                 > a.offs[b + 1]
             || a.offs[B] > a.scratch_bytes) {
@@ -586,7 +603,8 @@ __global__ void __launch_bounds__(NT) talco_xdrop_kernel(Batch a) {
     if (tid == 0) {
         tail[0] = err != 0 ? 0 : out_len;
         tail[1] = err;
-        tail[2] = (int32_t)cells;
+        // a 30 kb pair at a ladder width of 30000 can pass 2^31 cells
+        tail[2] = (int32_t)min(cells, (long long)INT_MAX);
         tail[3] = diags;
     }
 }
@@ -608,7 +626,8 @@ cudaError_t launch(const Batch& a, size_t smem, cudaStream_t stream) {
 extern "C" {
 
 // Launches one thread block per pair on `stream` and returns the launch's
-// error (cudaSuccess = 0). Does not synchronise.
+// error (cudaSuccess = 0). Does not synchronise. padlen may be any length
+// that holds the launch's longest side.
 cudaError_t talco_xdrop_launch(int p, int leaf, const void* ints, const void* floats,
                        const void* offs, const void* ref, const void* qry,
                        const void* matrix, int msize, void* scratch,
@@ -616,7 +635,7 @@ cudaError_t talco_xdrop_launch(int p, int leaf, const void* ints, const void* fl
                        int B, int padlen, int marker, void* stream) {
     if (B <= 0) return cudaSuccess;
     if ((p != 6 && p != 22) || msize < p - 1 || msize > 32 || padlen < 1
-            || marker < 1)
+            || padlen > (INT_MAX >> 2) || marker < 1)
         return cudaErrorInvalidValue;
     Batch a;
     a.ints = static_cast<const int32_t*>(ints);

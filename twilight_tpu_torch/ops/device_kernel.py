@@ -2,16 +2,22 @@
 `twilight_tpu/ops/device_kernel.py` (`DeviceTalco`, `make_device_kernel`,
 `select_devices`).
 
-Per level it sorts the pairs by size, packs each launch's pairs straight
-into one pinned host buffer (the g8 compact layout, `talco_cuda` module
-doc), and issues one H2D copy, the kernel and one D2H copy on its own CUDA
-stream, with an event marking the result ready. While launches are in
-flight the host steals pairs from the tail onto the native kernel (both
-produce the same bits), and each result is handed to `on_final` as soon as
-it is final. Errors 1/2 at task != 0 re-launch with the reference retry
-ladder; errors 3/4, and 1/2 at task 0, give None (the host ladder decides).
-A failed launch raises. Pairs longer than the 2048-column bucket run on
-the host kernel, counted and announced: their route (K4) is not ported.
+Per level it sorts the pairs by size and cuts them into launches by route:
+short launches (every side within the 2048-column bucket, padlen 2048),
+long launches (the route of the TPU's K4: padlen is the launch's longest
+side rounded up to 256) and wide launches (pairs whose retry-ladder width
+grew past 4096, the work of the TPU's K5). Each launch holds at most
+--pair-batch pairs and stays within a byte budget for its pinned staging
+and its device scratch. It packs each launch's pairs straight into one
+pinned host buffer (the g8 compact layout, `talco_cuda` module doc), and
+issues one H2D copy, the kernel and one D2H copy on its own CUDA stream,
+with an event marking the result ready. While launches are in flight the
+host steals pairs from the tail onto the native kernel (both produce the
+same bits), and each result is handed to `on_final` as soon as it is
+final. Errors 1/2 at task != 0 re-launch with the reference retry ladder;
+errors 3/4, and 1/2 at task 0, give None (the host ladder decides). A pair
+whose ladder width would exceed `MAX_WINDOW` gives None as well, as in the
+JAX batcher, and is counted and announced. A failed launch raises.
 """
 from __future__ import annotations
 
@@ -27,9 +33,14 @@ from twilight_tpu.config import Options, Params
 from twilight_tpu.constants import letter_lut
 
 from . import talco_cuda
-from .talco_cuda import MARKER, MAX_PADLEN, TAIL, p8_of
+from .talco_cuda import MARKER, MAX_WINDOW, TAIL, p8_of
 
 MAX_ROUNDS = 30
+SHORT_PADLEN = 2048          # the main path's bucket
+PADLEN_ALIGN = 256           # a long launch's padlen is a multiple of this
+STAGING_BUDGET = 64 << 20    # pinned ref + qry bytes of one launch
+SCRATCH_BUDGET = 2 << 30     # device scratch bytes of one launch
+_TAG = "[twilight-tpu-torch]"
 
 
 def padlen_bucket(m: int) -> int:
@@ -43,6 +54,45 @@ def padlen_bucket(m: int) -> int:
     while p < m:
         p <<= 1
     return p
+
+
+def launch_padlen(m: int) -> int:
+    """Padded length of a launch whose longest side has m columns: the
+    2048 bucket, or above it m rounded up to 256 (a CUDA launch takes
+    padlen as an argument; the TPU's fixed buckets only bounded
+    recompiles)."""
+    if m <= SHORT_PADLEN:
+        return SHORT_PADLEN
+    return -(-m // PADLEN_ALIGN) * PADLEN_ALIGN
+
+
+def split_launches(idxs, prepared, flen_param, rows: int, esz: int,
+                   batch: int, *, marker: int = MARKER,
+                   staging_budget: int = STAGING_BUDGET,
+                   scratch_budget: int = SCRATCH_BUDGET):
+    """Cuts a route's size-sorted pairs into launches of at most `batch`
+    pairs whose ref + qry blocks ([B, rows, padlen] of `esz`-byte
+    elements each) and scratch stay within the budgets; a pair over a
+    budget on its own gets a launch of its own. Returns [(chunk, padlen)]."""
+    out = []
+    chunk, padlen, scratch = [], 0, 0
+    for i in idxs:
+        rl, ql = prepared[i][4]
+        need = talco_cuda.pair_scratch_bytes(rl, ql, flen_param[i], marker)
+        pad = max(padlen, launch_padlen(max(rl, ql)))
+        if chunk and (len(chunk) == batch
+                      or 2 * (len(chunk) + 1) * rows * pad * esz
+                      > staging_budget
+                      or scratch + need > scratch_budget):
+            out.append((chunk, padlen))
+            chunk, scratch = [], 0
+            pad = launch_padlen(max(rl, ql))
+        chunk.append(i)
+        padlen = pad
+        scratch += need
+    if chunk:
+        out.append((chunk, padlen))
+    return out
 
 
 def select_devices(n_avail: int, option: Options) -> List[int]:
@@ -217,7 +267,8 @@ class DeviceTalco:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         self.p = 6 if option.type == "n" else 22
-        self.base_flen = 1 << 12
+        self.base_flen = 1 << 12     # starting ladder width; wider is "wide"
+        self.max_window = MAX_WINDOW
         self.marker = MARKER
         self.batch = max(1, option.pair_batch)
         self.matrix, _ = talco_cuda.device_params(param, self.device)
@@ -226,9 +277,14 @@ class DeviceTalco:
             from . import build
             build.load()     # a failed build raises before any level runs
             self.stream = torch.cuda.Stream(self.device)
+        # launches counts kernel launches on the card; long_launches and
+        # wide_launches count launches by route on either device, and
+        # ladder_relaunches the pairs the retry ladder sent back to one
         self.stats = {"launches": 0, "pairs": 0, "zero_length": 0,
                       "pairs_on_device": 0, "host_stolen": 0,
-                      "err3_fallbacks": 0, "host_long": 0}
+                      "err3_fallbacks": 0, "task0_errors": 0,
+                      "long_launches": 0, "wide_launches": 0,
+                      "ladder_relaunches": 0, "host_wide": 0}
 
     def close(self) -> None:
         """Wait for the stream: no launch outlives the run."""
@@ -236,13 +292,12 @@ class DeviceTalco:
             self.stream.synchronize()
 
     def summary(self) -> str:
-        return (f"[twilight-tpu-torch] {self.device}: "
+        return (f"{_TAG} {self.device}: "
                 + " ".join(f"{k}={v}" for k, v in self.stats.items()))
 
-    def _launch(self, chunk, prepared, metas, task, leaf, flen_param,
-                xdrop) -> _Launch:
+    def _launch(self, chunk, padlen, prepared, metas, task, leaf,
+                flen_param, xdrop) -> _Launch:
         cuda = self.device.type == "cuda"
-        padlen = MAX_PADLEN
         if leaf:
             st = pack_batch_leaf(chunk, prepared, metas, padlen, self.p,
                                  self.param, flen_param, xdrop,
@@ -310,8 +365,10 @@ class DeviceTalco:
                                    "layout do not match the batch "
                                    "(error 8)")
             elif task == 0 or e in (3, 4):
-                if e in (3, 4):
-                    self.stats["err3_fallbacks"] += 1
+                # the device's answer is final: at task 0 the reference
+                # defers the pair (the host ladder confirms it)
+                self.stats["err3_fallbacks" if e in (3, 4)
+                           else "task0_errors"] += 1
                 results[i] = None
                 note(i, None)
             else:
@@ -335,53 +392,64 @@ class DeviceTalco:
         xdrop = [int(1000 * -1 * param.gap_extend)] * n
 
         pending: List[int] = []
-        host_only: List[int] = []
         self.stats["pairs"] += n
         for i, prep in enumerate(prepared):
             lens = prep[4]
             if lens[0] <= 0 or lens[1] <= 0:
                 self.stats["zero_length"] += 1
                 note(i, None)   # zero-length side: post handles it
-            elif padlen_bucket(max(lens)) > MAX_PADLEN:
-                host_only.append(i)
             else:
                 pending.append(i)
-        if host_only:
-            self.stats["host_long"] += len(host_only)
-            print(f"[twilight-tpu-torch] {len(host_only)} pairs longer than "
-                  f"{MAX_PADLEN} columns run on the host kernel (the CUDA "
-                  "long-sequence route is not ported yet)", file=sys.stderr)
         no_steal = bool(os.environ.get("TWILIGHT_NO_STEAL"))
 
         rounds = 0
-        while (pending or host_only) and rounds < MAX_ROUNDS:
+        while pending and rounds < MAX_ROUNDS:
             rounds += 1
             buckets = {}
+            too_wide = []
             for i in pending:
+                lens = prepared[i][4]
+                if min(flen_param[i], min(lens)) > self.max_window:
+                    # the JAX batcher's cap (its device_kernel.py:464-468)
+                    too_wide.append(i)
+                    continue
+                # after the first round, every pending pair is a ladder step
+                self.stats["ladder_relaunches"] += rounds > 1
+                long_ = padlen_bucket(max(lens)) > SHORT_PADLEN
+                wide = flen_param[i] > self.base_flen
                 leaf = is_leaf_pair(prepared[i], metas[i], task,
                                     flen_param[i], self.base_flen)
-                buckets.setdefault(leaf, []).append(i)
+                buckets.setdefault((long_, wide, leaf), []).append(i)
             pending = []
+            if too_wide:
+                self.stats["host_wide"] += len(too_wide)
+                print(f"{_TAG} {len(too_wide)} pairs need a ladder width "
+                      f"above {self.max_window} columns: the host ladder "
+                      "aligns them", file=sys.stderr)
+                for i in too_wide:
+                    results[i] = None
+                    note(i, None)
             launches: List[_Launch] = []
-            for leaf, idxs in buckets.items():
+            for (long_, wide, leaf), idxs in buckets.items():
                 # size-sorted, so a launch's blocks carry similar work
                 idxs.sort(key=lambda i: -(prepared[i][4][0]
                                           + prepared[i][4][1]))
-                for lo in range(0, len(idxs), self.batch):
+                rows, esz = (1, 1) if leaf else (p8_of(self.p), 4)
+                for chunk, padlen in split_launches(
+                        idxs, prepared, flen_param, rows, esz, self.batch,
+                        marker=self.marker):
                     launches.append(self._launch(
-                        idxs[lo:lo + self.batch], prepared, metas, task,
-                        leaf, flen_param, xdrop))
+                        chunk, padlen, prepared, metas, task, leaf,
+                        flen_param, xdrop))
+                    self.stats["long_launches"] += int(long_)
+                    self.stats["wide_launches"] += int(wide)
 
             # steal pairs from the tail onto the host kernel while the
-            # launches run (TWILIGHT_NO_STEAL pins them to the device);
-            # pairs too long for the device are host work either way
+            # launches run (TWILIGHT_NO_STEAL pins them to the device)
             lock = threading.Lock()
             claimed: set = set()
             steal_stack = ([] if no_steal else
                            [i for ln in launches for i in ln.chunk])
-            steal_stack += host_only
-            host_set = set(host_only)
-            host_only = []
 
             def _claim():
                 with lock:
@@ -394,9 +462,8 @@ class DeviceTalco:
 
             def _steal_one(i):
                 results[i] = self._host_align(prepared[i], metas[i], task)
-                if i not in host_set:
-                    with lock:
-                        self.stats["host_stolen"] += 1
+                with lock:
+                    self.stats["host_stolen"] += 1
                 note(i, results[i])
 
             def _stealer():
@@ -428,7 +495,7 @@ class DeviceTalco:
             finally:
                 for th in stealers:
                     th.join()
-        for i in pending + host_only:
+        for i in pending:
             results[i] = None
             note(i, None)
         return results

@@ -1,13 +1,23 @@
 """TALCO-XDrop on an NVIDIA Hopper GPU: the CUDA kernel's wrapper and its
 plain PyTorch version.
 
-Replaces the grouped Pallas kernel `twilight_tpu/ops/talco_pallas_g8.py`
-(`get_pallas_kernel_g8`, `pallas_call` at :1672): its freq route
-(`_make_kernel(leaf=False)`), its leaf route (`leaf=True`,
-`similarity_leaf`) and the work of its escalated-window variant
-(`hbm_tb=True`). The kernel (`csrc/talco_xdrop.cu`) sizes each pair's
-scratch from the pair's own tile-width bound, so it never overflows a
-static window and never returns error 6.
+The counterpart of every TALCO TPU kernel of the repo (K1-K5), as size
+variants of one kernel (`csrc/talco_xdrop.cu`):
+
+- the grouped Pallas kernel `twilight_tpu/ops/talco_pallas_g8.py`
+  (`get_pallas_kernel_g8`, `pallas_call` at :1672): its freq route
+  (`_make_kernel(leaf=False)`, K1), its leaf route (`leaf=True`,
+  `similarity_leaf`, K2), the work of its escalated-window variant
+  (`hbm_tb=True`, K3) and its long-sequence variant (`hbm_in=True`,
+  padlen above 2048, K4);
+- the single-pair kernel `twilight_tpu/ops/talco_pallas.py`
+  (`get_pallas_kernel`, `pallas_call` at :579, K5): ladder widths above
+  4096 up to `MAX_WINDOW`, and padlen above 32768.
+
+The kernel reads the profiles straight from global memory at any padlen,
+and sizes each pair's scratch from the pair's own tile-width bound, so it
+never overflows a static window and never returns error 6: K3, K4 and K5
+need no code of their own, only a launch of the right size.
 
 Batch layout (the g8 compact layout; `device_kernel.pack_batch` fills it):
 
@@ -17,13 +27,14 @@ Batch layout (the g8 compact layout; `device_kernel.pack_batch` fills it):
 - `ref`, `qry`: freq route f32 [B, P8, padlen] (profile rows 0..P-1, gap
   open/extend rows P8-2/P8-1), leaf route int8 [B, 1, padlen] letter
   codes. The ref is reversed and right-aligned at padlen; the query is
-  left-aligned.
+  left-aligned. Any padlen from 1 to `MAX_LAUNCH_PADLEN` is accepted.
 
 Outputs: `paths` int8 [B, 2*padlen] (0 match, 1 insertion, 2 deletion)
-and `tail` int32 [B, 4] = [len, err, dp_cells, diagonals]. Errors: 0 ok,
-1 X-drop band collapse, 2 band exceeded flen, 3 index error. The kernel
-reports ERR_LAYOUT for a pair whose lengths or scratch do not match the
-batch (`offs`), which a correct packer never produces.
+and `tail` int32 [B, 4] = [len, err, dp_cells, diagonals], dp_cells
+saturated at INT32_MAX. Errors: 0 ok, 1 X-drop band collapse, 2 band
+exceeded flen, 3 index error. The kernel reports ERR_LAYOUT for a pair
+whose lengths or scratch do not match the batch (`offs`), or that is
+longer than the launch's padlen, which a correct packer never produces.
 """
 from __future__ import annotations
 
@@ -43,8 +54,11 @@ I_BOUNDARY_LOW16 = I_BOUNDARY & 0xFFFF
 D_BOUNDARY_LOW16 = D_BOUNDARY & 0xFFFF
 
 MARKER = 1 << 10
-MAX_PADLEN = 2048          # K4 (padlen > 2048) and K5 are not ported yet
+MAX_WINDOW = 1 << 15       # widest ladder width run on the card (the JAX
+                           # package's max_window, device_kernel.py:195)
 TAIL = 4                   # [len, err, dp_cells, diagonals]
+INT32_MAX = (1 << 31) - 1  # dp_cells saturates here
+MAX_LAUNCH_PADLEN = INT32_MAX >> 2   # paths [B, 2*padlen] index in int
 ERR_LAYOUT = 8
 _F32 = np.float32
 
@@ -102,11 +116,8 @@ def _check(ints, floats, offs, ref, qry, matrix, p):
     elif ref.dtype != torch.float32 or qry.dtype != torch.float32 \
             or rows != p8_of(p):
         raise ValueError(f"freq blocks must be f32 [B, {p8_of(p)}, padlen]")
-    if padlen > MAX_PADLEN:
-        raise NotImplementedError(
-            f"padlen {padlen} > {MAX_PADLEN}: the long-sequence route (K4, "
-            "talco_pallas_g8 hbm_in) and the single-pair kernel (K5, "
-            "talco_pallas) are not ported to CUDA yet")
+    if not 1 <= padlen <= MAX_LAUNCH_PADLEN:
+        raise ValueError(f"padlen must be in 1..{MAX_LAUNCH_PADLEN}")
     if ints.dtype != torch.int32 or tuple(ints.shape) != (4, b):
         raise ValueError("ints must be int32 [4, B]")
     if floats.dtype != torch.float32 or tuple(floats.shape) != (5, b):
@@ -621,11 +632,17 @@ def talco_align_reference(ints, floats, ref, qry, matrix, *, p: int,
     iv = ints.cpu().tolist()
     fv = floats.cpu().numpy()
     for bi in range(b):
+        rl, ql, flen = iv[0][bi], iv[1][bi], iv[2][bi]
+        if not (1 <= rl <= padlen and 1 <= ql <= padlen and flen >= 1) \
+                or (marker + 1) * min(flen, rl, ql) > INT32_MAX:
+            tail[bi, 1] = ERR_LAYOUT    # as the kernel's layout check
+            continue
         pr = _Pair(bi, iv, fv, ref, qry, matrix, p, leaf, marker)
         path, err, cells, diags = _align_pair(pr, maxaln)
         n = len(path)
         if err == 0 and n:
             paths[bi, :n] = torch.tensor(path, dtype=torch.int8)
-        tail[bi] = torch.tensor([n if err == 0 else 0, err, cells, diags],
+        tail[bi] = torch.tensor([n if err == 0 else 0, err,
+                                 min(cells, INT32_MAX), diags],
                                 dtype=torch.int32)
     return paths.to(dev), tail.to(dev)
