@@ -72,9 +72,30 @@ Phases (each prints its own lines; any failure exits non-zero):
    port's probe tool (tools/probe_loop_costs.py) times each in ns/step
    with the launch counts zeroed just before and read just after, and
    the plain versions are timed per step.
+12. workflow (`workflow`): `python -m twilight_tpu_torch.workflow`'s
+   iterative mode (run_iterative, what its main runs) on sim10k (10000 x
+   1 kb), 2 iterations, default backend: each step's wall (k-mer, Gram,
+   NJ/PartTree, alignment 0, msa distances, NJ, alignment 1), the launches
+   of each alignment and one Gram and one count product on the card; then
+   iter1.nwk must equal the host route's tree from the kept iter0.aln,
+   the final MSA's md5 must equal --backend native's on the kept
+   iter1.nwk (SP scores of both printed), and the iteration-0 tree is
+   compared with the host route's (printed, not held: the Gram product's
+   low bits differ); and what a fresh DP batcher costs an iteration;
+13. products (`products`): the Gram product of sim10k's k-mer profiles,
+   the msa counts of the workflow's iter0.aln and placement's counts of
+   5000 x 5000 rows of its final MSA, each on the card (resident, with
+   copies, the copies alone) against the host NumPy route, with its
+   bound; counts bit-equal, the Gram product within 1e-5; TF32 off inside
+   the products; and one small product's round trip (the gate's figure);
+14. placement (`placement`): 2000 simulated 1 kb rows aligned on the card
+   with their pruned true tree, 500 more placed with `-t` that tree and
+   `-n 2` through the workflow's main with the default backend,
+   md5-equal to --backend native.
 
 Only the port is imported (twilight_tpu_torch); its simulator makes the
-sets. The last two lines are a JSON object with the kernels' figures
+sets. The products' figures are a JSON line of their own. The last two
+lines are a JSON object with the kernels' figures
 (K1/K2, K4, K5, K6-K10: time, plain time, bound, launches) and the result
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero.
@@ -82,6 +103,7 @@ rest of the repository beside it, it exits non-zero.
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -105,6 +127,12 @@ PLAIN_MAX_COLS = 3000         # long pairs also held to the plain version
 LONG_PLAIN_PAIRS = 12         # at most this many of them
 PROBE_PLAIN_TRIPS = (20, 200)  # the plain probes' per-step time
 PROBE_SOURCE = "twilight_tpu_torch/ops/csrc/probe_loop_costs.cu"
+WORKFLOW_N = 10000            # sim10k: simulate -n 10000 -l 1000 --seed 0
+PLACE_ROWS = 5000             # placement counts: 5000 x 5000 rows
+PLACE_N, PLACE_BACKBONE = 2500, 2000   # placement mode: 2000 + 500
+PRODUCT_REPS = 3              # card routes timed by the host clock
+GRAM_TOL = 1e-5               # |card - host| of the Gram product (f32 sums
+                              # in another order; cosines of unit rows)
 # the probe kernels (K6-K10): wrapper, replaced pallas_call, the variant
 # whose time is the kernel's "ms", f32 operations per loop step
 GRP_W = 8 * 640
@@ -1009,6 +1037,339 @@ def phase_long_e2e(torch, td):
             check(cuda["long_launches"] > 0, f"e2e/{label}: no long launch")
     return runs
 
+# ---------------------------------------------------------------------------
+# the workflows (python -m twilight_tpu_torch.workflow) and their products
+# ---------------------------------------------------------------------------
+
+def _read_fasta(path):
+    from twilight_tpu_torch.seqio.fasta import iter_fasta
+    return {n: s for n, _, s in iter_fasta(path)}
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read().strip()
+
+
+def _clean_env():
+    """The workflows run as a user runs them: no forcing, stealing on."""
+    os.environ.pop("TWILIGHT_FORCE_DEVICE", None)
+    os.environ.pop("TWILIGHT_NO_STEAL", None)
+
+
+def _batcher_ms(torch):
+    """What a fresh DP batcher costs an alignment (each iteration's
+    cli.run makes one and closes it): set-up and close, the median of 5."""
+    from twilight_tpu_torch.config import Options, Params
+    from twilight_tpu_torch.ops.device_kernel import DeviceTalco
+    param, walls = Params.make("n"), []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        DeviceTalco(Options(device_backend="cuda", type="n"), param,
+                    "cuda").close()
+        walls.append(time.perf_counter() - t0)
+    return float(sorted(walls[1:])[2]) * 1e3
+
+
+def phase_workflow(torch, td):
+    """Iterative mode on sim10k (simulate -n 10000 -l 1000 --seed 0), two
+    iterations, with the default backend (auto: the card) and temp files
+    kept: each step's wall, the launches of each alignment, the products
+    on the card; then on the host: iter1.nwk must equal the tree the host
+    route builds from the kept iter0.aln (exact counts), the final MSA's
+    md5 must equal --backend native's on the kept iter1.nwk, and the
+    iteration-0 tree is compared with the host route's (the card's Gram
+    product differs in low bits)."""
+    from twilight_tpu_torch import cli
+    from twilight_tpu_torch.config import Params
+    from twilight_tpu_torch.ops import talco_cuda
+    from twilight_tpu_torch.tools.sp_score import sp_score
+    from twilight_tpu_torch.trees import estimate
+    from twilight_tpu_torch.workflow import iterative
+    sim = simulate(td, "sim10k", "-n", str(WORKFLOW_N), "-l", "1000",
+                   "--seed", "0")
+    fa, wd = sim[3], os.path.join(td, "wf10k")
+    out = os.path.join(td, "wf10k.aln")
+    _clean_env()
+    estimate.gram_on.calls = estimate.pair_counts_on.calls = 0
+    talco_cuda.talco_align.launches = 0
+    t0 = time.time()
+    steps = iterative.run_iterative(fa, out, iterations=2, temp_dir=wd,
+                                    keep_temp=True)
+    wall = time.time() - t0
+    launches = talco_cuda.talco_align.launches
+    aligns = [s for s in steps if s["step"].startswith("align")]
+    print(f"[workflow] sim10k, 2 iterations, default backend: {wall:.3f} s; "
+          "steps " + json.dumps(steps), flush=True)
+    check(estimate.gram_on.calls == 1 and estimate.pair_counts_on.calls == 1,
+          f"workflow: {estimate.gram_on.calls} Gram and "
+          f"{estimate.pair_counts_on.calls} count products on the card, "
+          "want 1 and 1")
+    check(all(s["launches"] > 0 for s in aligns)
+          and sum(s["launches"] for s in aligns) == launches,
+          f"workflow: launches by iteration {[s['launches'] for s in aligns]}"
+          f", {launches} counted")
+
+    seqs = _read_fasta(fa)
+    names = list(seqs)
+    rows0 = _read_fasta(os.path.join(wd, "iter0.aln"))
+    t0 = time.time()
+    host1 = estimate.build_guide_tree(names, [rows0[n] for n in names],
+                                      aligned=True)
+    host1_s = time.time() - t0
+    check(host1 == _read(os.path.join(wd, "iter1.nwk")),
+          "workflow: iter1.nwk differs from the host route's tree")
+    t0 = time.time()
+    host0 = estimate.build_guide_tree(names, [seqs[n] for n in names])
+    host0_s = time.time() - t0
+    card0 = _read(os.path.join(wd, "iter0.nwk"))
+    tree0_equal = host0 == card0
+    topology_equal = (re.sub(r":[-0-9.e]+", "", host0)
+                      == re.sub(r":[-0-9.e]+", "", card0))
+    nat = os.path.join(td, "wf10k_native.aln")
+    t0 = time.time()
+    rc, _ = cli.run(["-t", os.path.join(wd, "iter1.nwk"), "-i", fa, "-o",
+                     nat, "--backend", "native"])
+    native_s = time.time() - t0
+    check(rc == 0, "workflow: native alignment failed")
+    md5, md5_native = _md5(out), _md5(nat)
+    check(md5 == md5_native, f"workflow: final MSA md5 {md5} != native "
+          f"{md5_native} on iter1.nwk")
+    param = Params.make("n")
+    sp = sp_score(list(_read_fasta(out).values()), "n", param)
+    sp_native = sp_score(list(_read_fasta(nat).values()), "n", param)
+    batcher_ms = _batcher_ms(torch)
+    rec = {"wall_s": wall, "steps": steps, "launches": launches,
+           "md5": md5, "sp_score": sp, "sp_score_native": sp_native,
+           "native_align_s": native_s, "host_tree1_s": host1_s,
+           "host_tree0_s": host0_s, "tree0_equal_host": tree0_equal,
+           "tree0_topology_equal_host": topology_equal,
+           "tree0_md5": hashlib.md5(card0.encode()).hexdigest(),
+           "tree0_host_md5": hashlib.md5(host0.encode()).hexdigest(),
+           "batcher_ms": batcher_ms}
+    print("[workflow] " + json.dumps(
+        {k: v for k, v in rec.items() if k != "steps"}), flush=True)
+    print(f"[workflow] iter1.nwk equals the host route's tree; final md5 "
+          f"equals native's; iteration-0 tree "
+          f"{'equals' if tree0_equal else 'DIFFERS FROM'} the host "
+          f"route's (topology "
+          f"{'equal' if topology_equal else 'differs'}); SP {sp:.1f} (native {sp_native:.1f}); a fresh batcher "
+          f"{batcher_ms:.2f} ms per iteration", flush=True)
+    if not tree0_equal:
+        for tag, nwk in (("card", card0), ("host", host0)):
+            print(f"[workflow] iteration-0 tree, {tag} route: {nwk}",
+                  file=sys.stderr, flush=True)
+    return {"rec": rec, "fa": fa, "out": out, "iter0": rows0}
+
+
+def _product(torch, name, host, card, resident, h2d, outputs, ops,
+             in_bytes, exact, library=None):
+    """Times one product: the host NumPy route, the card route with its
+    copies (the median of PRODUCT_REPS after a warm-up), its torch calls
+    on resident tensors, one plain torch.matmul of the same function
+    (`library`, where the route makes more than one call) and the copies
+    alone (CUDA events); holds the card's result to the host's (bit for
+    bit, or within GRAM_TOL)."""
+    import numpy as np
+    from twilight_tpu_torch.tools.talco_inputs import timed
+    t0 = time.perf_counter()
+    want = host()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    card()
+    walls = []
+    for _ in range(PRODUCT_REPS):
+        t0 = time.perf_counter()
+        got = card()
+        walls.append(time.perf_counter() - t0)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    out_bytes = sum(g.nbytes for g in got)
+    dev_out = [torch.empty(g.shape, dtype=torch.float32, device="cuda")
+               for g in got]
+    host_out = [np.empty_like(g) for g in got]
+
+    def d2h():
+        for h, d in zip(host_out, dev_out):
+            torch.from_numpy(h).copy_(d)
+
+    rec = {"name": name, "outputs": outputs,
+           "with_copies_ms": float(np.median(walls)) * 1e3,
+           "card_ms": timed(torch, resident, 5),
+           "h2d_ms": timed(torch, h2d, 3), "d2h_ms": timed(torch, d2h, 3),
+           "host_ms": host_ms, "ops": ops, "bytes": in_bytes + out_bytes}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(ops, in_bytes + out_bytes)
+    rec["library_ms"] = (rec["card_ms"] if library is None
+                         else timed(torch, library, 5))
+    if library is not None:
+        one = library().cpu().numpy()
+        rec["library_max_abs_err"] = float(np.abs(one - want[0]).max())
+        del one
+    if exact:
+        rec["bit_equal"] = all(np.array_equal(g, w) for g, w in zip(got, want))
+        check(rec["bit_equal"], f"products/{name}: counts differ from the "
+              "host's")
+    rec["max_abs_err"] = max(float(np.abs(g - w).max())
+                             for g, w in zip(got, want))
+    check(exact or rec["max_abs_err"] <= GRAM_TOL,
+          f"products/{name}: max |card - host| {rec['max_abs_err']} > "
+          f"{GRAM_TOL}")
+    print(f"[products] {json.dumps(rec)}", flush=True)
+    return rec, got, want
+
+
+def phase_products(torch, wf):
+    """The workflow's three products at full size on the card against the
+    host NumPy route: the Gram product of sim10k's k-mer profiles, the msa
+    match/valid counts of the workflow's iter0.aln, and placement's counts
+    of 5000 query rows against 5000 backbone rows of its final MSA. Counts
+    bit-equal, the Gram product within GRAM_TOL; and one small product's
+    round trip (the gate's figure, trees/estimate.PRODUCT_ROUND_TRIP_S)."""
+    import numpy as np
+    from twilight_tpu_torch.trees import estimate
+    from twilight_tpu_torch.workflow import placement
+    cuda = torch.device("cuda")
+    seqs = _read_fasta(wf["fa"])
+    x = estimate.kmer_profiles(list(seqs.values()))
+    n, dim = x.shape
+    with estimate.ieee_f32():
+        tf32 = {"fp32_precision": torch.backends.cuda.matmul.fp32_precision,
+                "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    tf32["outside the products"] = torch.backends.cuda.matmul.fp32_precision
+    print(f"[products] TF32 inside the products: {json.dumps(tf32)}",
+          flush=True)
+    check(tf32["fp32_precision"] == "ieee" and not tf32["allow_tf32"],
+          "products: TF32 on inside the products")
+    xd = torch.from_numpy(x).to(cuda)
+
+    def gram_resident():
+        with estimate.ieee_f32():
+            return estimate.gram_rows(xd, 0, n)
+
+    def gram_library():
+        with estimate.ieee_f32():
+            return xd @ xd.T
+
+    rec, got, want = _product(
+        torch, f"gram [{n}, {dim}] f32", lambda: estimate._gram(x, None),
+        lambda: estimate.gram_on(x, cuda), gram_resident,
+        lambda: torch.from_numpy(x).to(cuda), 1, 2.0 * n * n * dim,
+        x.nbytes, exact=False, library=gram_library)
+    # each route's rounding against the f64 product of the same inputs
+    x64 = xd.double()
+    ex = x64 @ x64.T
+    err = {tag: float((torch.from_numpy(g).to(cuda).double() - ex).abs()
+                      .max()) for tag, g in (("host", want[0]),
+                                             ("card", got[0]))}
+    err["one matmul"] = float((gram_library().double() - ex).abs().max())
+    del x64, ex
+    print(f"[products] gram max |route - f64 product|: {json.dumps(err)}",
+          flush=True)
+    rec["max_abs_err_vs_f64"] = err
+    recs = [rec]
+
+    def counts(name, a, b, letters, host, card):
+        da, va = estimate.one_hots_on(a, letters, cuda)
+        db, vb = (da, va) if b is None else estimate.one_hots_on(b, letters,
+                                                                 cuda)
+
+        def resident():
+            with estimate.ieee_f32():
+                return da @ db.T, va @ vb.T
+
+        def h2d():
+            for mat in (a,) if b is None else (a, b):
+                torch.from_numpy(np.ascontiguousarray(mat)).to(cuda)
+
+        rows_b = a.shape[0] if b is None else b.shape[0]
+        ops = 2.0 * a.shape[0] * rows_b * a.shape[1] * (len(letters) + 1)
+        in_bytes = a.nbytes + (0 if b is None else b.nbytes)
+        return _product(torch, name, host, card, resident, h2d, 2, ops,
+                        in_bytes, exact=True)[0]
+
+    rows0 = wf["iter0"]
+    mat, is_gap = estimate.msa_columns([rows0[k] for k in seqs])
+    letters = estimate.msa_letters(mat)
+    recs.append(counts(
+        f"msa counts [{mat.shape[0]}, {mat.shape[1]}] x {len(letters)} "
+        "letters", mat, None, letters,
+        lambda: estimate.host_msa_counts(mat, is_gap, letters),
+        lambda: estimate.pair_counts_on(mat, None, letters, cuda)))
+    final = _read_fasta(wf["out"])
+    rows = np.stack([np.frombuffer(final[k].upper().encode(), np.uint8)
+                     for k in seqs])
+    q, bb = rows[:PLACE_ROWS], rows[PLACE_ROWS:2 * PLACE_ROWS]
+    cols = q.shape[1]
+    step = cols // 4096 + 1 if cols > 4096 else 1
+    recs.append(counts(
+        f"placement counts [{PLACE_ROWS}] x [{PLACE_ROWS}], "
+        f"{q[:, ::step].shape[1]} columns x 4 letters",
+        q[:, ::step], bb[:, ::step], b"ACGT",
+        lambda: placement.placement_counts(q, bb),
+        lambda: placement.placement_counts(q, bb, device=cuda)))
+
+    small = x[:64]
+    estimate.gram_on(small, cuda)
+    walls = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        estimate.gram_on(small, cuda)
+        walls.append(time.perf_counter() - t0)
+    rt = {"shape": [64, dim], "round_trip_ms": float(np.median(walls)) * 1e3,
+          "min_ms": min(walls) * 1e3, "max_ms": max(walls) * 1e3,
+          "constant_ms": estimate.PRODUCT_ROUND_TRIP_S * 1e3}
+    print(f"[products] round trip of gram_on: {json.dumps(rt)}", flush=True)
+    return recs, rt
+
+
+def phase_placement(torch, td):
+    """Placement mode: a simulated set of 2500 x 1 kb, its first 2000 rows
+    aligned on the card with their pruned true tree, the other 500 placed
+    with -t that tree and -n 2 through the workflow's command line with
+    the default backend (the card: alignments and counts), md5-equal to
+    the same run with --backend native."""
+    from twilight_tpu_torch import cli
+    from twilight_tpu_torch.ops import talco_cuda
+    from twilight_tpu_torch.phylo.tree import Tree
+    from twilight_tpu_torch.trees import estimate
+    from twilight_tpu_torch.workflow import iterative
+    sim = simulate(td, "pl2500", "-n", str(PLACE_N), "-l", "1000",
+                   "--seed", "0")
+    seqs = _read_fasta(sim[3])
+    names = list(seqs)
+    files = {k: os.path.join(td, "pl_" + k)
+             for k in ("bb.fa", "q.fa", "bb.nwk", "bb.aln")}
+    for key, part in (("bb.fa", names[:PLACE_BACKBONE]),
+                      ("q.fa", names[PLACE_BACKBONE:])):
+        with open(files[key], "w") as f:
+            f.writelines(f">{n}\n{seqs[n]}\n" for n in part)
+    pruned = Tree.from_newick_file(sim[1]).prune(set(names[:PLACE_BACKBONE]))
+    with open(files["bb.nwk"], "w") as f:
+        f.write(pruned.get_newick_string() + "\n")
+    _clean_env()
+    check(cli.main(["-t", files["bb.nwk"], "-i", files["bb.fa"], "-o",
+                    files["bb.aln"]]) == 0, "placement: backbone failed")
+    runs = {}
+    for label, extra in (("cuda", []), ("native", ["--backend", "native"])):
+        out = os.path.join(td, f"pl_{label}.aln")
+        estimate.pair_counts_on.calls = 0
+        talco_cuda.talco_align.launches = 0
+        t0 = time.time()
+        rc = iterative.main(["-i", files["q.fa"], "-a", files["bb.aln"],
+                             "-t", files["bb.nwk"], "-n", "2", "-o", out,
+                             "-d", os.path.join(td, f"pl_{label}")] + extra)
+        runs[label] = {"wall_s": time.time() - t0, "rc": rc,
+                       "launches": talco_cuda.talco_align.launches,
+                       "card_counts": estimate.pair_counts_on.calls,
+                       "md5": _md5(out) if rc == 0 else None}
+        print(f"[placement] {label}: {json.dumps(runs[label])}", flush=True)
+        check(rc == 0, f"placement/{label}: exit code {rc}")
+    check(runs["cuda"]["launches"] > 0 and runs["cuda"]["card_counts"] == 1,
+          "placement: the default run made no launch or no card product")
+    check(runs["cuda"]["md5"] == runs["native"]["md5"],
+          f"placement: md5 {runs['cuda']['md5']} != native "
+          f"{runs['native']['md5']}")
+    return runs
+
+
 
 def main():
     import torch
@@ -1069,6 +1430,9 @@ def main():
     with tempfile.TemporaryDirectory() as td:
         runs = phase_e2e(torch, td)
         long_runs = phase_long_e2e(torch, td)
+        wf = phase_workflow(torch, td)
+        products, product_rt = phase_products(torch, wf)
+        place = phase_placement(torch, td)
 
     for label in ("sim2k", "s20", "p12", "w20"):
         r = runs if label == "sim2k" else long_runs
@@ -1105,6 +1469,24 @@ def main():
           flush=True)
     print("[summary] kernel attributes: " + json.dumps(attributes),
           flush=True)
+    rec = wf["rec"]
+    walls = {s["step"]: round(s["s"], 3) for s in rec["steps"]}
+    print(f"[summary] workflow sim10k -n 2 (default backend): "
+          f"{rec['wall_s']:.3f} s, steps {json.dumps(walls)}, launches by "
+          f"iteration {[s['launches'] for s in rec['steps'] if 'launches' in s]}"
+          f"; --backend native on iter1.nwk {rec['native_align_s']:.3f} s; "
+          f"SP {rec['sp_score']:.1f}; card {smi_line}", flush=True)
+    print(f"[summary] placement 500 onto 2000, -n 2: default "
+          f"{place['cuda']['wall_s']:.3f} s ({place['cuda']['launches']} "
+          f"launches) vs native {place['native']['wall_s']:.3f} s; card "
+          f"{smi_line}", flush=True)
+    print("[summary] products, ms (card resident / with copies / host): "
+          + "; ".join(f"{r['name']}: {r['card_ms']:.3f} / "
+                      f"{r['with_copies_ms']:.3f} / {r['host_ms']:.1f}"
+                      for r in products)
+          + f"; round trip {product_rt['round_trip_ms']:.3f} ms; card "
+          f"{smi_line}", flush=True)
+    print(json.dumps({"products": products}), flush=True)
 
     def talco(name, res, launches, err, plain_ms, replaces):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,

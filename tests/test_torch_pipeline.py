@@ -170,11 +170,38 @@ def _merge_dir(tmp_path):
     return ["-f", str(msas)]
 
 
+def _backbone(tmp_path, sim_set):
+    """Placement inputs from sim_set: its first 200 sequences aligned by
+    the JAX CLI on their pruned true tree, and the other 40 as queries."""
+    from twilight_tpu.phylo.tree import Tree
+    from twilight_tpu.seqio.fasta import iter_fasta
+
+    seqs = {n: s for n, _, s in iter_fasta(sim_set[3])}
+    names = list(seqs)
+    bb_fa, q_fa = str(tmp_path / "bb.fa"), str(tmp_path / "q.fa")
+    for path, part in ((bb_fa, names[:200]), (q_fa, names[200:])):
+        with open(path, "w") as f:
+            f.writelines(f">{n}\n{seqs[n]}\n" for n in part)
+    bb_nwk, bb_aln = str(tmp_path / "bb.nwk"), str(tmp_path / "bb.aln")
+    pruned = Tree.from_newick_file(sim_set[1]).prune(set(names[:200]))
+    with open(bb_nwk, "w") as f:
+        f.write(pruned.get_newick_string() + "\n")
+    assert tpu_cli.main(["-t", bb_nwk, "-i", bb_fa, "-o", bb_aln,
+                         "--backend", "native", "-C", "2"]) == 0
+    return ["-a", bb_aln, "-i", q_fa]
+
+
 @pytest.mark.parametrize("case", ["default", "rooted", "length_deviation",
-                                  "divide_and_conquer", "merge", "protein"])
+                                  "divide_and_conquer", "merge", "protein",
+                                  "place_without_tree", "place_with_tree"])
 def test_cli_native_md5_equals_jax_cli(tmp_path, sim_set, case):
     if case == "merge":
         argv = _merge_dir(tmp_path)
+    elif case == "place_without_tree":
+        argv = _backbone(tmp_path, sim_set)
+    elif case == "place_with_tree":
+        # the full true tree holds the backbone's leaves and the queries'
+        argv = _backbone(tmp_path, sim_set) + ["-t", sim_set[1]]
     elif case == "protein":
         argv = ["-t", f"{DATA}/prot_16.nwk", "-i", f"{DATA}/prot_16.fa",
                 "--type", "p"]
@@ -185,7 +212,7 @@ def test_cli_native_md5_equals_jax_cli(tmp_path, sim_set, case):
     outs = {}
     for tag, entry in (("jax", tpu_cli.main), ("port", cli.main)):
         extra = []
-        if case in ("divide_and_conquer", "merge"):
+        if case in ("divide_and_conquer", "merge", "place_without_tree"):
             extra = ["-d", str(tmp_path / f"temp_{tag}")]
         outs[tag] = str(tmp_path / f"{tag}.aln")
         assert entry(argv + extra + ["-o", outs[tag], "--backend", "native",

@@ -262,12 +262,11 @@ def options_from_args(args) -> Options:
     return opt
 
 
-def _pick_backend(opt) -> str:
+def resolve_backend(backend: str) -> str:
     """Resolve --backend auto: the card whenever there is one (the level
     gate then sends each level to the host or the card, as under
-    --backend cuda); without a card it refuses to carry on on the host.
-    Any other choice stands as given."""
-    backend = opt.device_backend
+    --backend cuda); without a card it refuses to carry on on the host
+    (RuntimeError). Any other choice stands as given."""
     if backend != "auto":
         return backend
     if torch.cuda.is_available():
@@ -314,7 +313,7 @@ def run(argv=None):
     if opt.device_num != 0:    # --devices 0 / --cpu-only: host only
         try:
             # raises without a card (auto, cuda), or for a failed build
-            opt.device_backend = _pick_backend(opt)
+            opt.device_backend = resolve_backend(opt.device_backend)
             kernel = make_device_kernel(opt, param)
         except RuntimeError as e:
             print(f"ERROR: {e}", file=sys.stderr)
