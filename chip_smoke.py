@@ -74,24 +74,34 @@ Phases (each prints its own lines; any failure exits non-zero):
    the plain versions are timed per step.
 12. workflow (`workflow`): `python -m twilight_tpu_torch.workflow`'s
    iterative mode (run_iterative, what its main runs) on sim10k (10000 x
-   1 kb), 2 iterations, default backend: each step's wall (k-mer, Gram,
-   NJ/PartTree, alignment 0, msa distances, NJ, alignment 1), the launches
-   of each alignment and one Gram and one count product on the card; then
-   iter1.nwk must equal the host route's tree from the kept iter0.aln,
-   the final MSA's md5 must equal --backend native's on the kept
-   iter1.nwk (SP scores of both printed), and the iteration-0 tree is
-   compared with the host route's (printed, not held: the Gram product's
-   low bits differ); and what a fresh DP batcher costs an iteration;
-13. products (`products`): the Gram product of sim10k's k-mer profiles,
-   the msa counts of the workflow's iter0.aln and placement's counts of
-   5000 x 5000 rows of its final MSA, each on the card (resident, with
-   copies, the copies alone) against the host NumPy route, with its
-   bound; counts bit-equal, the Gram product within 1e-5; TF32 off inside
-   the products; and one small product's round trip (the gate's figure);
+   1 kb), 2 iterations, default backend: each step's wall (k-mer, Gram on
+   the host, NJ/PartTree, alignment 0, msa distances, NJ, alignment 1),
+   the launches of each alignment and one count product on the card;
+   then the whole workflow again with --backend native, whose iter0.nwk,
+   iter1.nwk and final md5 the default run must equal (SP score
+   printed); and what a fresh DP batcher costs an iteration;
+13. products (`products`): the msa counts of the workflow's iter0.aln and
+   placement's counts of 5000 x 5000 rows of its final MSA, each on the
+   card (resident, with copies, the copies alone) against the host NumPy
+   route, with its bound, bit-equal; TF32 off inside the products; and
+   the round trip of pair_counts_on on a small block (the gate's figure);
 14. placement (`placement`): 2000 simulated 1 kb rows aligned on the card
    with their pruned true tree, 500 more placed with `-t` that tree and
    `-n 2` through the workflow's main with the default backend,
-   md5-equal to --backend native.
+   md5-equal to --backend native;
+15. multihost (`multihost`): sim10k with its true tree, --rooted -m
+   2000, --backend cuda, as two processes on this card in a
+   torch.distributed gloo group (no host flags), the subtree states
+   exchanged by all-gather: each process's subtrees, wall and launches
+   (both must launch), host 1 writes no output, host 0's md5 equals a
+   one-process --backend native run with the same -m;
+16. multidevice (`multidevice`): sim2k with the device forced through
+   DeviceTalco(devices=[cuda:0, cuda:0]) (two launch queues, each with
+   its stream and matrix copy) in turns with one queue: the golden md5,
+   launches split over both queues, the walls side by side.
+
+`--only a,b,...` runs some phases (build always runs; products needs
+workflow) and prints no kernels line.
 
 Only the port is imported (twilight_tpu_torch); its simulator makes the
 sets. The products' figures are a JSON line of their own. The last two
@@ -127,12 +137,13 @@ PLAIN_MAX_COLS = 3000         # long pairs also held to the plain version
 LONG_PLAIN_PAIRS = 12         # at most this many of them
 PROBE_PLAIN_TRIPS = (20, 200)  # the plain probes' per-step time
 PROBE_SOURCE = "twilight_tpu_torch/ops/csrc/probe_loop_costs.cu"
-WORKFLOW_N = 10000            # sim10k: simulate -n 10000 -l 1000 --seed 0
+SIM2K = ("sim2k", "-n", "2000", "-l", "1000", "--seed", "0")
+SIM10K = ("sim10k", "-n", "10000", "-l", "1000", "--seed", "0")
+MULTIHOST_M = 2000            # the multihost phase's -m (sim10k: 2000 max)
+PROC_TIMEOUT_S = 600          # each process of the multihost phase
 PLACE_ROWS = 5000             # placement counts: 5000 x 5000 rows
 PLACE_N, PLACE_BACKBONE = 2500, 2000   # placement mode: 2000 + 500
 PRODUCT_REPS = 3              # card routes timed by the host clock
-GRAM_TOL = 1e-5               # |card - host| of the Gram product (f32 sums
-                              # in another order; cosines of unit rows)
 # the probe kernels (K6-K10): wrapper, replaced pallas_call, the variant
 # whose time is the kernel's "ms", f32 operations per loop step
 GRP_W = 8 * 640
@@ -927,7 +938,10 @@ def e2e_run(torch, runs, td, label, argv, golden, device=True, force=True,
 
 
 def simulate(td, name, *args):
+    """The simulated set `name` (made once a run), as -t/-i arguments."""
     prefix = os.path.join(td, name)
+    if os.path.exists(prefix + ".fa") and os.path.exists(prefix + ".nwk"):
+        return ["-t", prefix + ".nwk", "-i", prefix + ".fa"]
     t0 = time.time()
     r = subprocess.run([sys.executable, "-m",
                         "twilight_tpu_torch.tools.simulate",
@@ -947,8 +961,7 @@ def phase_e2e(torch, td):
     prot = os.path.join(REPO, "tests", "data", "prot_16")
     run("prot_16", ["--backend", "cuda", "-t", prot + ".nwk", "-i",
                     prot + ".fa", "--type", "p"], GOLDEN_PROT16)
-    sim = simulate(td, "sim2k", "-n", "2000", "-l", "1000", "--seed", "0") \
-        + ["--rooted"]
+    sim = simulate(td, *SIM2K) + ["--rooted"]
     run("sim2k_cuda", ["--backend", "cuda"] + sim, GOLDEN_SIM2K)
     run("sim2k_native", ["--backend", "native"] + sim, GOLDEN_SIM2K,
         device=False)
@@ -1072,104 +1085,78 @@ def _batcher_ms(torch):
 
 
 def phase_workflow(torch, td):
-    """Iterative mode on sim10k (simulate -n 10000 -l 1000 --seed 0), two
-    iterations, with the default backend (auto: the card) and temp files
-    kept: each step's wall, the launches of each alignment, the products
-    on the card; then on the host: iter1.nwk must equal the tree the host
-    route builds from the kept iter0.aln (exact counts), the final MSA's
-    md5 must equal --backend native's on the kept iter1.nwk, and the
-    iteration-0 tree is compared with the host route's (the card's Gram
-    product differs in low bits)."""
-    from twilight_tpu_torch import cli
+    """Iterative mode on sim10k, two iterations, with the default backend
+    (auto: the card) and temp files kept: each step's wall, the launches
+    of each alignment, one count product on the card; then the whole
+    workflow again with --backend native on this host, whose iter0.nwk,
+    iter1.nwk and final MSA the default run must equal byte for byte (the
+    Gram product is on the host in both, the counts are exact)."""
     from twilight_tpu_torch.config import Params
     from twilight_tpu_torch.ops import talco_cuda
     from twilight_tpu_torch.tools.sp_score import sp_score
     from twilight_tpu_torch.trees import estimate
     from twilight_tpu_torch.workflow import iterative
-    sim = simulate(td, "sim10k", "-n", str(WORKFLOW_N), "-l", "1000",
-                   "--seed", "0")
-    fa, wd = sim[3], os.path.join(td, "wf10k")
-    out = os.path.join(td, "wf10k.aln")
-    _clean_env()
-    estimate.gram_on.calls = estimate.pair_counts_on.calls = 0
-    talco_cuda.talco_align.launches = 0
-    t0 = time.time()
-    steps = iterative.run_iterative(fa, out, iterations=2, temp_dir=wd,
-                                    keep_temp=True)
-    wall = time.time() - t0
-    launches = talco_cuda.talco_align.launches
-    aligns = [s for s in steps if s["step"].startswith("align")]
-    print(f"[workflow] sim10k, 2 iterations, default backend: {wall:.3f} s; "
-          "steps " + json.dumps(steps), flush=True)
-    check(estimate.gram_on.calls == 1 and estimate.pair_counts_on.calls == 1,
-          f"workflow: {estimate.gram_on.calls} Gram and "
-          f"{estimate.pair_counts_on.calls} count products on the card, "
-          "want 1 and 1")
+    fa = simulate(td, *SIM10K)[3]
+    runs = {}
+    for tag, backend in (("default", "auto"), ("native", "native")):
+        wd = os.path.join(td, f"wf10k_{tag}")
+        out = os.path.join(td, f"wf10k_{tag}.aln")
+        _clean_env()
+        estimate.pair_counts_on.calls = 0
+        talco_cuda.talco_align.launches = 0
+        t0 = time.time()
+        steps = iterative.run_iterative(fa, out, iterations=2, temp_dir=wd,
+                                        backend=backend, keep_temp=True)
+        wall = time.time() - t0
+        runs[tag] = {"wd": wd, "out": out, "wall_s": wall, "steps": steps,
+                     "launches": talco_cuda.talco_align.launches,
+                     "counts_on_card": estimate.pair_counts_on.calls}
+        print(f"[workflow] sim10k, 2 iterations, {tag} backend: "
+              f"{wall:.3f} s; steps " + json.dumps(steps), flush=True)
+    dflt, nat = runs["default"], runs["native"]
+    aligns = [s for s in dflt["steps"] if s["step"].startswith("align")]
+    check(dflt["counts_on_card"] == 1,
+          f"workflow: {dflt['counts_on_card']} count products on the "
+          "card, want 1")
+    check(nat["counts_on_card"] == 0 and nat["launches"] == 0,
+          "workflow: the native run used the card")
     check(all(s["launches"] > 0 for s in aligns)
-          and sum(s["launches"] for s in aligns) == launches,
+          and sum(s["launches"] for s in aligns) == dflt["launches"],
           f"workflow: launches by iteration {[s['launches'] for s in aligns]}"
-          f", {launches} counted")
-
-    seqs = _read_fasta(fa)
-    names = list(seqs)
-    rows0 = _read_fasta(os.path.join(wd, "iter0.aln"))
-    t0 = time.time()
-    host1 = estimate.build_guide_tree(names, [rows0[n] for n in names],
-                                      aligned=True)
-    host1_s = time.time() - t0
-    check(host1 == _read(os.path.join(wd, "iter1.nwk")),
-          "workflow: iter1.nwk differs from the host route's tree")
-    t0 = time.time()
-    host0 = estimate.build_guide_tree(names, [seqs[n] for n in names])
-    host0_s = time.time() - t0
-    card0 = _read(os.path.join(wd, "iter0.nwk"))
-    tree0_equal = host0 == card0
-    topology_equal = (re.sub(r":[-0-9.e]+", "", host0)
-                      == re.sub(r":[-0-9.e]+", "", card0))
-    nat = os.path.join(td, "wf10k_native.aln")
-    t0 = time.time()
-    rc, _ = cli.run(["-t", os.path.join(wd, "iter1.nwk"), "-i", fa, "-o",
-                     nat, "--backend", "native"])
-    native_s = time.time() - t0
-    check(rc == 0, "workflow: native alignment failed")
-    md5, md5_native = _md5(out), _md5(nat)
+          f", {dflt['launches']} counted")
+    for name in ("iter0.nwk", "iter1.nwk"):
+        a = _read(os.path.join(dflt["wd"], name))
+        b = _read(os.path.join(nat["wd"], name))
+        check(a == b, f"workflow: {name} of the default run differs from "
+              "the native run's")
+    md5, md5_native = _md5(dflt["out"]), _md5(nat["out"])
     check(md5 == md5_native, f"workflow: final MSA md5 {md5} != native "
-          f"{md5_native} on iter1.nwk")
+          f"{md5_native}")
     param = Params.make("n")
-    sp = sp_score(list(_read_fasta(out).values()), "n", param)
-    sp_native = sp_score(list(_read_fasta(nat).values()), "n", param)
+    sp = sp_score(list(_read_fasta(dflt["out"]).values()), "n", param)
     batcher_ms = _batcher_ms(torch)
-    rec = {"wall_s": wall, "steps": steps, "launches": launches,
-           "md5": md5, "sp_score": sp, "sp_score_native": sp_native,
-           "native_align_s": native_s, "host_tree1_s": host1_s,
-           "host_tree0_s": host0_s, "tree0_equal_host": tree0_equal,
-           "tree0_topology_equal_host": topology_equal,
-           "tree0_md5": hashlib.md5(card0.encode()).hexdigest(),
-           "tree0_host_md5": hashlib.md5(host0.encode()).hexdigest(),
+    rec = {"wall_s": dflt["wall_s"], "steps": dflt["steps"],
+           "launches": dflt["launches"], "md5": md5,
+           "md5_native": md5_native, "sp_score": sp,
+           "native_wall_s": nat["wall_s"], "native_steps": nat["steps"],
+           "tree0_md5": hashlib.md5(_read(os.path.join(
+               dflt["wd"], "iter0.nwk")).encode()).hexdigest(),
            "batcher_ms": batcher_ms}
     print("[workflow] " + json.dumps(
-        {k: v for k, v in rec.items() if k != "steps"}), flush=True)
-    print(f"[workflow] iter1.nwk equals the host route's tree; final md5 "
-          f"equals native's; iteration-0 tree "
-          f"{'equals' if tree0_equal else 'DIFFERS FROM'} the host "
-          f"route's (topology "
-          f"{'equal' if topology_equal else 'differs'}); SP {sp:.1f} (native {sp_native:.1f}); a fresh batcher "
+        {k: v for k, v in rec.items() if "steps" not in k}), flush=True)
+    print(f"[workflow] iter0.nwk, iter1.nwk and the final md5 equal the "
+          f"whole native workflow's; SP {sp:.1f}; a fresh batcher "
           f"{batcher_ms:.2f} ms per iteration", flush=True)
-    if not tree0_equal:
-        for tag, nwk in (("card", card0), ("host", host0)):
-            print(f"[workflow] iteration-0 tree, {tag} route: {nwk}",
-                  file=sys.stderr, flush=True)
-    return {"rec": rec, "fa": fa, "out": out, "iter0": rows0}
+    return {"rec": rec, "fa": fa, "out": dflt["out"],
+            "iter0": _read_fasta(os.path.join(dflt["wd"], "iter0.aln"))}
 
 
-def _product(torch, name, host, card, resident, h2d, outputs, ops,
-             in_bytes, exact, library=None):
-    """Times one product: the host NumPy route, the card route with its
-    copies (the median of PRODUCT_REPS after a warm-up), its torch calls
-    on resident tensors, one plain torch.matmul of the same function
-    (`library`, where the route makes more than one call) and the copies
-    alone (CUDA events); holds the card's result to the host's (bit for
-    bit, or within GRAM_TOL)."""
+def _product(torch, name, host, card, resident, h2d, ops, in_bytes):
+    """Times one count product: the host NumPy route, the card route with
+    its copies (the median of PRODUCT_REPS after a warm-up), its torch
+    calls on resident tensors (one torch.matmul an output, so also the
+    library's time) and the copies alone (CUDA events); holds the card's
+    counts to the host's bit for bit."""
     import numpy as np
     from twilight_tpu_torch.tools.talco_inputs import timed
     t0 = time.perf_counter()
@@ -1181,7 +1168,6 @@ def _product(torch, name, host, card, resident, h2d, outputs, ops,
         t0 = time.perf_counter()
         got = card()
         walls.append(time.perf_counter() - t0)
-    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     out_bytes = sum(g.nbytes for g in got)
     dev_out = [torch.empty(g.shape, dtype=torch.float32, device="cuda")
                for g in got]
@@ -1191,45 +1177,32 @@ def _product(torch, name, host, card, resident, h2d, outputs, ops,
         for h, d in zip(host_out, dev_out):
             torch.from_numpy(h).copy_(d)
 
-    rec = {"name": name, "outputs": outputs,
+    rec = {"name": name, "outputs": len(got),
            "with_copies_ms": float(np.median(walls)) * 1e3,
            "card_ms": timed(torch, resident, 5),
            "h2d_ms": timed(torch, h2d, 3), "d2h_ms": timed(torch, d2h, 3),
            "host_ms": host_ms, "ops": ops, "bytes": in_bytes + out_bytes}
     rec["bound_ms"], rec["bound_by"] = bound_ms(ops, in_bytes + out_bytes)
-    rec["library_ms"] = (rec["card_ms"] if library is None
-                         else timed(torch, library, 5))
-    if library is not None:
-        one = library().cpu().numpy()
-        rec["library_max_abs_err"] = float(np.abs(one - want[0]).max())
-        del one
-    if exact:
-        rec["bit_equal"] = all(np.array_equal(g, w) for g, w in zip(got, want))
-        check(rec["bit_equal"], f"products/{name}: counts differ from the "
-              "host's")
-    rec["max_abs_err"] = max(float(np.abs(g - w).max())
-                             for g, w in zip(got, want))
-    check(exact or rec["max_abs_err"] <= GRAM_TOL,
-          f"products/{name}: max |card - host| {rec['max_abs_err']} > "
-          f"{GRAM_TOL}")
+    rec["library_ms"] = rec["card_ms"]
+    rec["bit_equal"] = all(np.array_equal(g, w) for g, w in zip(got, want))
+    check(rec["bit_equal"], f"products/{name}: counts differ from the "
+          "host's")
     print(f"[products] {json.dumps(rec)}", flush=True)
-    return rec, got, want
+    return rec
 
 
 def phase_products(torch, wf):
-    """The workflow's three products at full size on the card against the
-    host NumPy route: the Gram product of sim10k's k-mer profiles, the msa
-    match/valid counts of the workflow's iter0.aln, and placement's counts
-    of 5000 query rows against 5000 backbone rows of its final MSA. Counts
-    bit-equal, the Gram product within GRAM_TOL; and one small product's
-    round trip (the gate's figure, trees/estimate.PRODUCT_ROUND_TRIP_S)."""
+    """The workflow's two count products at full size on the card against
+    the host NumPy route: the msa match/valid counts of the workflow's
+    iter0.aln and placement's counts of 5000 query rows against 5000
+    backbone rows of its final MSA, bit-equal; TF32 off inside the
+    products; and the round trip of pair_counts_on on a [64, 1024] block
+    (the gate's figure, trees/estimate.PRODUCT_ROUND_TRIP_S). The Gram
+    product runs on the host only (trees/estimate._gram)."""
     import numpy as np
     from twilight_tpu_torch.trees import estimate
     from twilight_tpu_torch.workflow import placement
     cuda = torch.device("cuda")
-    seqs = _read_fasta(wf["fa"])
-    x = estimate.kmer_profiles(list(seqs.values()))
-    n, dim = x.shape
     with estimate.ieee_f32():
         tf32 = {"fp32_precision": torch.backends.cuda.matmul.fp32_precision,
                 "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
@@ -1238,33 +1211,6 @@ def phase_products(torch, wf):
           flush=True)
     check(tf32["fp32_precision"] == "ieee" and not tf32["allow_tf32"],
           "products: TF32 on inside the products")
-    xd = torch.from_numpy(x).to(cuda)
-
-    def gram_resident():
-        with estimate.ieee_f32():
-            return estimate.gram_rows(xd, 0, n)
-
-    def gram_library():
-        with estimate.ieee_f32():
-            return xd @ xd.T
-
-    rec, got, want = _product(
-        torch, f"gram [{n}, {dim}] f32", lambda: estimate._gram(x, None),
-        lambda: estimate.gram_on(x, cuda), gram_resident,
-        lambda: torch.from_numpy(x).to(cuda), 1, 2.0 * n * n * dim,
-        x.nbytes, exact=False, library=gram_library)
-    # each route's rounding against the f64 product of the same inputs
-    x64 = xd.double()
-    ex = x64 @ x64.T
-    err = {tag: float((torch.from_numpy(g).to(cuda).double() - ex).abs()
-                      .max()) for tag, g in (("host", want[0]),
-                                             ("card", got[0]))}
-    err["one matmul"] = float((gram_library().double() - ex).abs().max())
-    del x64, ex
-    print(f"[products] gram max |route - f64 product|: {json.dumps(err)}",
-          flush=True)
-    rec["max_abs_err_vs_f64"] = err
-    recs = [rec]
 
     def counts(name, a, b, letters, host, card):
         da, va = estimate.one_hots_on(a, letters, cuda)
@@ -1282,17 +1228,18 @@ def phase_products(torch, wf):
         rows_b = a.shape[0] if b is None else b.shape[0]
         ops = 2.0 * a.shape[0] * rows_b * a.shape[1] * (len(letters) + 1)
         in_bytes = a.nbytes + (0 if b is None else b.nbytes)
-        return _product(torch, name, host, card, resident, h2d, 2, ops,
-                        in_bytes, exact=True)[0]
+        return _product(torch, name, host, card, resident, h2d, ops,
+                        in_bytes)
 
+    seqs = _read_fasta(wf["fa"])
     rows0 = wf["iter0"]
     mat, is_gap = estimate.msa_columns([rows0[k] for k in seqs])
     letters = estimate.msa_letters(mat)
-    recs.append(counts(
+    recs = [counts(
         f"msa counts [{mat.shape[0]}, {mat.shape[1]}] x {len(letters)} "
         "letters", mat, None, letters,
         lambda: estimate.host_msa_counts(mat, is_gap, letters),
-        lambda: estimate.pair_counts_on(mat, None, letters, cuda)))
+        lambda: estimate.pair_counts_on(mat, None, letters, cuda))]
     final = _read_fasta(wf["out"])
     rows = np.stack([np.frombuffer(final[k].upper().encode(), np.uint8)
                      for k in seqs])
@@ -1306,17 +1253,19 @@ def phase_products(torch, wf):
         lambda: placement.placement_counts(q, bb),
         lambda: placement.placement_counts(q, bb, device=cuda)))
 
-    small = x[:64]
-    estimate.gram_on(small, cuda)
+    small = np.ascontiguousarray(rows[:64, :1024])
+    estimate.pair_counts_on(small, None, b"ACGT", cuda)
     walls = []
     for _ in range(50):
         t0 = time.perf_counter()
-        estimate.gram_on(small, cuda)
+        estimate.pair_counts_on(small, None, b"ACGT", cuda)
         walls.append(time.perf_counter() - t0)
-    rt = {"shape": [64, dim], "round_trip_ms": float(np.median(walls)) * 1e3,
+    rt = {"shape": list(small.shape), "letters": 4,
+          "round_trip_ms": float(np.median(walls)) * 1e3,
           "min_ms": min(walls) * 1e3, "max_ms": max(walls) * 1e3,
           "constant_ms": estimate.PRODUCT_ROUND_TRIP_S * 1e3}
-    print(f"[products] round trip of gram_on: {json.dumps(rt)}", flush=True)
+    print(f"[products] round trip of pair_counts_on: {json.dumps(rt)}",
+          flush=True)
     return recs, rt
 
 
@@ -1370,8 +1319,166 @@ def phase_placement(torch, td):
     return runs
 
 
+# one host of the multihost phase: forms the gloo group (rendezvous through
+# a file; argv: rank, init method, then the command line), runs the port's
+# command line, and prints its wall, launches and batcher counts
+HOST_RUNNER = """
+import datetime, json, sys, time
+import torch.distributed as dist
+rank, init = int(sys.argv[1]), sys.argv[2]
+t0 = time.time()
+dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=600))
+t1 = time.time()
+from twilight_tpu_torch import cli
+from twilight_tpu_torch.ops import talco_cuda
+try:
+    rc, kernel = cli.run(sys.argv[3:])
+finally:
+    dist.destroy_process_group()
+print("HOST " + json.dumps({
+    "rank": rank, "rc": rc, "group_s": t1 - t0, "wall_s": time.time() - t1,
+    "launches": talco_cuda.talco_align.launches,
+    "launches_by_device": kernel.stats["launches_by_device"] if kernel
+    else []}), flush=True)
+sys.exit(rc)
+"""
 
-def main():
+
+def phase_multihost(torch, td):
+    """Divide-and-conquer over two hosts: sim10k with its true tree,
+    --rooted -m 2000, --backend cuda, as two processes on this card that
+    form a torch.distributed gloo group (no host flags: the topology comes
+    from the group) and exchange the subtree-root states by all-gather;
+    host 0 merges and writes the MSA. Held: both processes launch the
+    kernel, take the all-gather (no checkpoint polling), host 1 writes no
+    output, and host 0's md5 equals a one-process --backend native run
+    with the same -m."""
+    from twilight_tpu_torch import cli
+    argv = simulate(td, *SIM10K) + ["--rooted", "-m", str(MULTIHOST_M)]
+    _clean_env()
+    nat = os.path.join(td, "mh_native.aln")
+    t0 = time.time()
+    rc, _ = cli.run(argv + ["--backend", "native", "-d",
+                            os.path.join(td, "mh_native_tmp"), "-o", nat])
+    native_s = time.time() - t0
+    check(rc == 0, f"multihost: the native run exited {rc}")
+    outs = [os.path.join(td, f"mh_h{r}.aln") for r in range(2)]
+    logs = [os.path.join(td, f"mh_h{r}.log") for r in range(2)]
+    init = "file://" + os.path.join(td, "mh_rendezvous")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.time()
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", HOST_RUNNER, str(r), init] + argv
+                + ["--backend", "cuda", "-d", os.path.join(td, "mh_shared"),
+                   "-o", outs[r]], cwd=REPO, env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, PROC_TIMEOUT_S - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    both_s = time.time() - t0
+    text = [_read(path) for path in logs]
+    hosts = []
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"multihost: host {r} exited "
+              f"{p.returncode}:\n{text[r][-3000:]}")
+        rec = json.loads(re.search(r"^HOST (.*)$", text[r], re.M).group(1))
+        rec["subtrees"] = int(re.search(rf"Host {r}/2: (\d+) subtrees",
+                                        text[r]).group(1))
+        rec["collective"] = (f"Host {r}: exchanging {rec['subtrees']} "
+                             "subtree states by all-gather." in text[r])
+        rec["file_polling"] = "waiting for" in text[r]
+        hosts.append(rec)
+        print(f"[multihost] host {r}: " + json.dumps(rec), flush=True)
+        check(rec["launches"] > 0, f"multihost: host {r} never launched")
+        check(rec["collective"] and not rec["file_polling"],
+              f"multihost: host {r} did not exchange by all-gather")
+    parts = int(re.search(r"Decomposed the tree into (\d+) subtrees",
+                          text[0]).group(1))
+    check(sum(h["subtrees"] for h in hosts) == parts,
+          f"multihost: {[h['subtrees'] for h in hosts]} subtrees of "
+          f"{parts}")
+    check(not os.path.exists(outs[1]), "multihost: host 1 wrote an output")
+    md5, md5_native = _md5(outs[0]), _md5(nat)
+    check(md5 == md5_native, f"multihost: host 0's md5 {md5} != native "
+          f"{md5_native}")
+    res = {"subtrees": parts, "hosts": hosts, "both_s": both_s,
+           "native_s": native_s, "md5": md5}
+    print(f"[multihost] sim10k -m {MULTIHOST_M}: {parts} subtrees, "
+          f"{[h['subtrees'] for h in hosts]} a host; two processes on one "
+          f"card {both_s:.3f} s (launches {[h['launches'] for h in hosts]})"
+          f" against one native process {native_s:.3f} s; md5 {md5} equals "
+          "native's", flush=True)
+    return res
+
+
+def phase_multidevice(torch, td):
+    """Two launch queues on this card: DeviceTalco(devices=[cuda:0,
+    cuda:0]) (each with its own stream and matrix copy) behind the
+    command line, sim2k with the device forced and no stealing, in turns
+    with the one-queue batcher (one, two, two, one). Held: the golden md5,
+    and the launches split over both queues."""
+    from twilight_tpu_torch import cli
+    from twilight_tpu_torch.ops.device_kernel import DeviceTalco
+    sim = simulate(td, *SIM2K) + ["--rooted"]
+    real = cli.make_device_kernel
+    runs, walls = {}, {"one": [], "two": []}
+    for turn, tag in enumerate(("one", "two", "two", "one")):
+        if tag == "two":
+            cli.make_device_kernel = lambda opt, param: DeviceTalco(
+                opt, param, ["cuda:0", "cuda:0"])
+        try:
+            rec = e2e_run(torch, runs, td, f"sim2k_{tag}_queue_{turn}",
+                          ["--backend", "cuda"] + sim, GOLDEN_SIM2K)
+        finally:
+            cli.make_device_kernel = real
+        by = rec["launches_by_device"]
+        check(len(by) == (2 if tag == "two" else 1) and all(by)
+              and sum(by) == rec["launches"],
+              f"multidevice: launches by queue {by}, {rec['launches']} "
+              "launches")
+        walls[tag].append(rec["wall_s"])
+    print(f"[multidevice] sim2k forced, walls one queue {walls['one']} s, "
+          f"two queues on cuda:0 {walls['two']} s; launches by queue "
+          f"{[r['launches_by_device'] for r in runs.values()]}", flush=True)
+    return {"walls": walls, "runs": runs}
+
+
+PHASES = ("parity", "long_parity", "wide", "time", "long_time", "gate",
+          "probes", "e2e", "long_e2e", "workflow", "products", "placement",
+          "multihost", "multidevice")
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="the port's smoke test on one "
+                                 "GPU (module doc)")
+    ap.add_argument("--only", help="comma-separated phases to run (of "
+                    f"{', '.join(PHASES)}; products needs workflow); the "
+                    "kernels' JSON line needs them all")
+    args = ap.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
+    if only is not None and (not only <= set(PHASES)
+                             or ("products" in only
+                                 and "workflow" not in only)):
+        print(f"chip_smoke: --only {args.only}: phases are "
+              f"{', '.join(PHASES)}, and products needs workflow",
+              file=sys.stderr)
+        return 2
+
+    def want(phase):
+        return only is None or phase in only
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1414,25 +1521,46 @@ def main():
           "did not build")
 
     workers = max(1, min(8, os.cpu_count() or 1))
-    with ProcessPoolExecutor(max_workers=workers,
-                             mp_context=multiprocessing.get_context("spawn")
-                             ) as pool:
-        parity_err = phase_parity(torch, pool, workers)
-        long_err, long_cross = phase_long_parity(torch, pool, workers)
-        wide_err, wide, wide_cross = phase_wide_parity(torch, pool, workers)
-    # rows past W_S live in the pair's scratch, below it in shared memory
-    check(long_cross >= 10, f"parity: {long_cross} long pairs whose band "
-          f"crosses W_S provably (want 10), {wide_cross} wide ones")
-    timing = phase_time(torch)
-    long_time = phase_long_time(torch)
-    gate = phase_gate(torch)
-    probes, probe_launches = phase_probes(torch)
+    if want("parity") or want("long_parity") or want("wide"):
+        with ProcessPoolExecutor(
+                max_workers=workers,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            if want("parity"):
+                parity_err = phase_parity(torch, pool, workers)
+            if want("long_parity"):
+                long_err, long_cross = phase_long_parity(torch, pool,
+                                                         workers)
+                # rows past W_S live in the pair's scratch, below it in
+                # shared memory
+                check(long_cross >= 10, f"parity: {long_cross} long pairs "
+                      "whose band crosses W_S provably (want 10)")
+            if want("wide"):
+                wide_err, wide, wide_cross = phase_wide_parity(torch, pool,
+                                                               workers)
+    timing = phase_time(torch) if want("time") else None
+    long_time = phase_long_time(torch) if want("long_time") else None
+    gate = phase_gate(torch) if want("gate") else None
+    if want("probes"):
+        probes, probe_launches = phase_probes(torch)
     with tempfile.TemporaryDirectory() as td:
-        runs = phase_e2e(torch, td)
-        long_runs = phase_long_e2e(torch, td)
-        wf = phase_workflow(torch, td)
-        products, product_rt = phase_products(torch, wf)
-        place = phase_placement(torch, td)
+        runs = phase_e2e(torch, td) if want("e2e") else None
+        long_runs = phase_long_e2e(torch, td) if want("long_e2e") else None
+        wf = phase_workflow(torch, td) if want("workflow") else None
+        if want("products"):
+            products, product_rt = phase_products(torch, wf)
+        place = phase_placement(torch, td) if want("placement") else None
+        multihost = phase_multihost(torch, td) if want("multihost") \
+            else None
+        multidevice = phase_multidevice(torch, td) \
+            if want("multidevice") else None
+    ok = json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                            "count": count}})
+    if only is not None:
+        # some phases only: no summary and no kernels line
+        print(f"[summary] ran {', '.join(p for p in PHASES if want(p))}; "
+              f"card {smi_line}", flush=True)
+        print(ok, flush=True)
+        return 0
 
     for label in ("sim2k", "s20", "p12", "w20"):
         r = runs if label == "sim2k" else long_runs
@@ -1471,10 +1599,12 @@ def main():
           flush=True)
     rec = wf["rec"]
     walls = {s["step"]: round(s["s"], 3) for s in rec["steps"]}
+    native_walls = {s["step"]: round(s["s"], 3) for s in rec["native_steps"]}
     print(f"[summary] workflow sim10k -n 2 (default backend): "
           f"{rec['wall_s']:.3f} s, steps {json.dumps(walls)}, launches by "
           f"iteration {[s['launches'] for s in rec['steps'] if 'launches' in s]}"
-          f"; --backend native on iter1.nwk {rec['native_align_s']:.3f} s; "
+          f"; the whole workflow with --backend native "
+          f"{rec['native_wall_s']:.3f} s, steps {json.dumps(native_walls)}; "
           f"SP {rec['sp_score']:.1f}; card {smi_line}", flush=True)
     print(f"[summary] placement 500 onto 2000, -n 2: default "
           f"{place['cuda']['wall_s']:.3f} s ({place['cuda']['launches']} "
@@ -1487,6 +1617,16 @@ def main():
           + f"; round trip {product_rt['round_trip_ms']:.3f} ms; card "
           f"{smi_line}", flush=True)
     print(json.dumps({"products": products}), flush=True)
+    print(f"[summary] multihost sim10k -m {MULTIHOST_M}: two processes "
+          f"{multihost['both_s']:.3f} s (walls "
+          f"{[round(h['wall_s'], 3) for h in multihost['hosts']]} s, "
+          f"launches {[h['launches'] for h in multihost['hosts']]}, "
+          f"subtrees {[h['subtrees'] for h in multihost['hosts']]}) against "
+          f"one native process {multihost['native_s']:.3f} s; card "
+          f"{smi_line}", flush=True)
+    print(f"[summary] multidevice sim2k forced: one queue "
+          f"{multidevice['walls']['one']} s, two queues on cuda:0 "
+          f"{multidevice['walls']['two']} s; card {smi_line}", flush=True)
 
     def talco(name, res, launches, err, plain_ms, replaces):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -1523,15 +1663,104 @@ def main():
             "unit": "per loop step",
             "ns_per_step": {n: v["ns_per_step"] for n, v in vs.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": kind,
-                                             "count": count}}), flush=True)
+    print(ok, flush=True)
     return 0
 
 
+def _descendants():
+    """{pid: (state, command line)} of every process below this one."""
+    parent, state = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        parent[int(entry)], state[int(entry)] = int(fields[1]), fields[0]
+    found, frontier = {}, {os.getpid()}
+    while frontier:
+        frontier = {pid for pid, pp in parent.items() if pp in frontier}
+        for pid in frontier:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(
+                        errors="replace").strip()
+            except OSError:
+                cmd = ""
+            found[pid] = (state[pid], cmd or "?")
+    return found
+
+
+def adopt_orphans():
+    """Make this process the reaper of every process started below it
+    (Linux PR_SET_CHILD_SUBREAPER), so that an orphaned grandchild stays
+    in reach of stop_descendants."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:
+        print("chip_smoke: PR_SET_CHILD_SUBREAPER failed (errno "
+              f"{ctypes.get_errno()})", file=sys.stderr)
+
+
+def stop_descendants(grace_s=5.0):
+    """Leave no process behind. Closes the multiprocessing resource
+    tracker's pipe (the spawn pool started the tracker; it exits at end of
+    file), gives every process below this one `grace_s` to end, then sends
+    SIGTERM, 3 s later SIGKILL, and reaps each one that is a child. Each
+    process that had to be signalled is named on stderr."""
+    import signal
+    from multiprocessing import resource_tracker
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        fd, tracker._fd = tracker._fd, None
+    if fd is not None:
+        os.close(fd)
+    signalled, first = {}, True
+    t0 = time.time()
+    while True:
+        live = {}
+        for pid, (state, cmd) in _descendants().items():
+            if state == "Z":
+                try:
+                    os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    pass    # a live descendant's child: its parent reaps it
+            else:
+                live[pid] = cmd
+        if not live:
+            return
+        if first:
+            first = False
+            print("chip_smoke: waiting for the processes still running "
+                  "below this one: " + "; ".join(
+                      f"{pid} ({cmd[:200]})" for pid, cmd in live.items()),
+                  file=sys.stderr, flush=True)
+        waited = time.time() - t0
+        if waited > grace_s:
+            sig = signal.SIGKILL if waited > grace_s + 3 else signal.SIGTERM
+            for pid, cmd in live.items():
+                if signalled.get(pid) != sig:
+                    signalled[pid] = sig
+                    print(f"chip_smoke: process {pid} ({cmd[:300]}) still "
+                          f"running at the end; sending {sig.name}",
+                          file=sys.stderr, flush=True)
+                    try:
+                        os.kill(pid, sig)
+                    except ProcessLookupError:
+                        pass
+        time.sleep(0.05)
+
+
 if __name__ == "__main__":
+    adopt_orphans()
     try:
-        sys.exit(main())
+        rc = main()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
-        sys.exit(1)
+        rc = 1
+    finally:
+        stop_descendants()
+    sys.exit(rc)

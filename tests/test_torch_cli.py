@@ -194,10 +194,3 @@ def test_backend_auto_without_card_exits(monkeypatch, tmp_path, capfd):
         rc, kernel = cli.run(prot + host_only + ["-o", str(out)])
         assert rc == 0 and kernel is None
         assert _md5(out) == PROT16_MD5
-
-
-def test_multi_host_flags_rejected(tmp_path, capfd):
-    rc = cli.main(["--hosts", "2", "-t", f"{DATA}/prot_16.nwk",
-                   "-i", f"{DATA}/prot_16.fa", "-o", str(tmp_path / "x")])
-    assert rc == 1
-    assert "not ported" in capfd.readouterr().err

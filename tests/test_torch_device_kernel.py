@@ -201,7 +201,7 @@ def test_make_device_kernel_backends(monkeypatch):
     assert dk.make_device_kernel(Options(device_backend="numpy"), param) \
         is None
     cpu = dk.make_device_kernel(Options(device_backend="cpu"), param)
-    assert cpu.device.type == "cpu" and cpu.stream is None
+    assert cpu.device.type == "cpu" and cpu.streams == [None]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         dk.make_device_kernel(Options(device_backend="cuda"), param)
@@ -243,3 +243,37 @@ def test_batcher_on_cpu_tensors_matches_host_kernel(monkeypatch):
     for i in (0, 1, 2, 4):
         want = batcher._host_align(prepared[i], metas[i], 0)
         np.testing.assert_array_equal(res[i], want)
+
+
+def test_launch_groups_striped_over_devices(monkeypatch):
+    """Three CPU queues: a launch group holds --pair-batch pairs a device
+    of the size-sorted pairs, device d launches group[d::3], each device
+    counts its own launches, and the paths equal one queue's."""
+    monkeypatch.setenv("TWILIGHT_NO_STEAL", "1")
+    rng = np.random.default_rng(11)
+    opt = Options(device_backend="cpu", type="n", pair_batch=2)
+    param = Params.make("n")
+    prepared, metas = _prepared(rng, 6, 9)
+    metas = [(m[0], m[1], 2, 2) for m in metas]    # one route: freq
+    one = dk.DeviceTalco(opt, param, "cpu")
+    want = one(prepared, metas, _DB(), opt, param)
+    three = dk.DeviceTalco(opt, param, ["cpu"] * 3)
+    seen = []
+    real = three._launch
+
+    def record(chunk, *args):
+        seen.append((args[-1], list(chunk)))
+        return real(chunk, *args)
+
+    monkeypatch.setattr(three, "_launch", record)
+    got = three(prepared, metas, _DB(), opt, param)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    order = sorted(range(9), key=lambda i: -(prepared[i][4][0]
+                                             + prepared[i][4][1]))
+    groups = [order[:6], order[6:]]
+    assert seen == [(q, g[q::3]) for g in groups for q in range(3)
+                    if g[q::3]]
+    assert three.stats["launches_by_device"] == [2, 2, 2]
+    assert one.stats["launches_by_device"] == [5]
+    assert three.stats["launches"] == one.stats["launches"] == 0

@@ -1,9 +1,10 @@
 """The port's guide-tree estimation (twilight_tpu_torch.trees) held to the
 JAX package's (twilight_tpu.trees) on the same inputs, made from a numpy
 seed: k-mer profiles, distances and trees bit for bit on the host; the
-card route's plain versions (`gram_on`, `pair_counts_on` on a CPU device)
-against NumPy; the route each product takes; and the external tree-tool
-adapters against mock binaries (the same argv, the same Newick)."""
+card route's plain version (`pair_counts_on` on a CPU device) against
+NumPy; the route each product takes (the Gram product never leaves the
+host); and the external tree-tool adapters against mock binaries (the
+same argv, the same Newick)."""
 import os
 import re
 import stat
@@ -146,23 +147,23 @@ def test_build_guide_tree_parttree_equal(aligned):
 # the card route's products, as their plain versions on a CPU device
 # ---------------------------------------------------------------------------
 
-def test_gram_on_plain_version_matches_numpy():
-    rng = np.random.default_rng(7)
-    x = estimate.kmer_profiles(_seqs(rng, 50, 300, b"ACGT"))
-    got = estimate.gram_on(x, torch.device("cpu"))
-    assert got.dtype == np.float32 and got.shape == (50, 50)
-    assert np.abs(got - x @ x.T).max() <= 1e-6
-
-
-def test_gram_on_row_blocks(monkeypatch):
-    """An output past the byte budget is cut into row blocks, and the
-    contraction into GRAM_K_CHUNK columns (600: two chunks and 88)."""
+@pytest.mark.parametrize("blocks", [False, True],
+                         ids=["one-product", "row-blocks"])
+def test_host_gram(monkeypatch, blocks):
+    """The Gram product on the host: one product, bit-equal to the JAX
+    package's below its 20 s cut-off; above it (the cut-off lowered here)
+    rows in blocks of max(512, n/8), each block one host product."""
     rng = np.random.default_rng(8)
-    x = rng.random((37, 600), dtype=np.float32)
+    x = rng.random((1100, 64), dtype=np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
-    monkeypatch.setattr(estimate, "OUT_BLOCK_BYTES", 5 * 37 * 4)
-    got = estimate.gram_on(x, torch.device("cpu"))
-    assert np.abs(got - x @ x.T).max() <= 1e-5
+    if blocks:
+        monkeypatch.setattr(estimate, "_HOST_ROW_BLOCK_EST_S", 0.0)
+        want = np.concatenate([x[i0:i0 + 512] @ x.T
+                               for i0 in range(0, 1100, 512)])
+    else:
+        want = tpu_estimate._gram(x)
+    got = estimate._gram(x)
+    assert got.dtype == np.float32 and got.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("letters,block", [(None, False), (b"ACGT", False),
@@ -207,9 +208,10 @@ def test_ieee_f32_scope_restores_the_setting():
 def _run_product(product, device):
     rng = np.random.default_rng(10)
     if product == "gram":
-        prof = estimate.kmer_profiles(_seqs(rng, 40, 300, b"ACGT"))
-        return (estimate.pairwise_distances(prof, device=device),
-                tpu_estimate.pairwise_distances(prof))
+        seqs = _seqs(rng, 40, 300, b"ACGT")
+        names = [f"S{i}" for i in range(40)]
+        return (estimate.build_guide_tree(names, seqs, device=device),
+                tpu_estimate.build_guide_tree(names, seqs))
     if product == "msa":
         rows = _aligned_rows(rng, 260, 200)
         return (estimate.msa_distances(rows, device=device),
@@ -227,8 +229,11 @@ def _run_product(product, device):
                                    "cuda-above-gate"])
 def test_product_routes(monkeypatch, product, route):
     """A CUDA device below the gate and no device (native, cpu, numpy) at
-    any size keep a product on the host; a CUDA device above the gate
-    sends it to the card function (stubbed here by its plain version)."""
+    any size keep a count product on the host; a CUDA device above the
+    gate sends it to the card function (stubbed here by its plain
+    version). The Gram product stays on the host at every gate, so the
+    k-mer tree is the JAX package's bit for bit (a card call would fail:
+    this host has no CUDA device)."""
     calls = []
 
     def stub(real):
@@ -237,17 +242,15 @@ def test_product_routes(monkeypatch, product, route):
             return real(*args[:-1], torch.device("cpu"))
         return card
 
-    monkeypatch.setattr(estimate, "gram_on", stub(estimate.gram_on))
     monkeypatch.setattr(estimate, "pair_counts_on",
                         stub(estimate.pair_counts_on))
     gate = 1e9 if route == "cuda-below-gate" else 0.0
     monkeypatch.setattr(estimate, "CARD_MIN_EST_S", gate)
     device = None if route == "native-above-gate" else CUDA
     got, want = _run_product(product, device)
-    assert calls == ([CUDA] if route == "cuda-above-gate" else [])
-    if product == "gram" and calls:
-        assert np.abs(got - want).max() <= 1e-5   # low bits of another sum
-    elif product == "placement":
+    assert calls == ([CUDA] if route == "cuda-above-gate"
+                     and product != "gram" else [])
+    if product in ("gram", "placement"):
         assert got == want
     else:
         assert got.tobytes() == want.tobytes()

@@ -63,6 +63,39 @@ def test_run_iterative_md5_equals_jax(tmp_path, case):
     assert all(s["launches"] == 0 for s in steps if "launches" in s)
 
 
+def test_iterative_with_card_products_md5_equals_jax(tmp_path, monkeypatch):
+    """The workflow's card route (a CUDA device for the tree estimation,
+    every gate at 0; the count products stubbed by their plain version on
+    the CPU): the Gram product stays on the host, so the trees and the
+    final MSA are the JAX package's with --backend native."""
+    from twilight_tpu_torch.trees import estimate
+    prefix = str(tmp_path / "sim300")
+    assert simulate.main(["-n", "300", "-l", "300", "--seed", "12",
+                          "-o", prefix]) == 0
+    calls = []
+    real = estimate.pair_counts_on
+
+    def card(a, b, letters, device):
+        calls.append(device)
+        return real(a, b, letters, torch.device("cpu"))
+
+    monkeypatch.setattr(estimate, "pair_counts_on", card)
+    monkeypatch.setattr(estimate, "CARD_MIN_EST_S", 0.0)
+    monkeypatch.setattr(iterative, "resolve",
+                        lambda backend: ("native", torch.device("cuda")))
+    outs = {}
+    for tag, fn in (("jax", tpu_run_iterative), ("port", run_iterative)):
+        outs[tag] = str(tmp_path / f"{tag}.aln")
+        fn(prefix + ".fa", outs[tag], iterations=2,
+           temp_dir=str(tmp_path / f"wf_{tag}"), backend="native",
+           extra_args=["-C", "2"], keep_temp=True)
+    assert calls == [torch.device("cuda")]
+    for name in ("iter0.nwk", "iter1.nwk"):
+        assert (_read(tmp_path / "wf_port" / name)
+                == _read(tmp_path / "wf_jax" / name)), name
+    assert _md5(outs["port"]) == _md5(outs["jax"])
+
+
 @pytest.fixture(scope="module")
 def backbone(tmp_path_factory):
     """40 simulated sequences of ~150 bases: 32 backbone rows aligned by

@@ -2,7 +2,7 @@
 
 The flags, option checks and pipeline are TWILIGHT-TPU's own, in the
 port's copies (`config`, `pipeline.modes`); this module picks the DP
-engine: `--backend cuda` runs the TALCO-XDrop kernel on the first selected
+engine: `--backend cuda` runs the TALCO-XDrop kernel on every selected
 GPU, `cpu` runs the same batcher with the kernel's plain PyTorch version on
 CPU tensors, `native` and `numpy` run the host kernels, and `auto` (the
 default) is `cuda` whenever a GPU is present and an error without one.
@@ -21,6 +21,8 @@ import torch
 from .config import (INT32_MAX, PLACE_WO_TREE, Options, Params,
                      detect_mode, detect_type)
 from .ops.device_kernel import make_device_kernel
+from .parallel.distributed import (detect_topology, detect_topology_implicit,
+                                   distributed_live)
 from .pipeline import modes
 
 BACKENDS = ("auto", "cuda", "cpu", "native", "numpy")
@@ -93,9 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run only on the CPU (reference GPU build's "
                         "--cpu-only; same as --devices 0)")
     p.add_argument("--hosts", type=int, default=0,
-                   help="multi-host runs are not ported yet")
+                   help="multi-host subtree dispatch: total host count "
+                        "(defaults to torch.distributed's world size when "
+                        "a default process group is initialized)")
     p.add_argument("--host-id", type=int, default=-1,
-                   help="multi-host runs are not ported yet")
+                   help="this host's index (defaults to "
+                        "torch.distributed's rank)")
     p.add_argument("--profile-trace", metavar="DIR",
                    help="capture a torch.profiler trace of the run into "
                         "DIR/trace.json (chrome trace format)")
@@ -239,10 +244,12 @@ def options_from_args(args) -> Options:
             or opt.aln_mode == PLACE_WO_TREE):
         if args.temp_dir:
             opt.temp_dir = args.temp_dir.rstrip("/")
-            # exists-guard (option.cpp:228-233); --resume runs
-            # legitimately reuse the directory
+            # exists-guard (option.cpp:228-233); --resume and multi-host
+            # runs (flags or a live torch.distributed group) legitimately
+            # share/reuse the directory
             if (os.path.exists(opt.temp_dir) and not args.overwrite
-                    and not args.resume and not args.hosts):
+                    and not args.resume and not args.hosts
+                    and not distributed_live()):
                 raise ValueError(
                     f"{opt.temp_dir} already exists. In order to prevent "
                     "your file from being overwritten, please delete this "
@@ -291,13 +298,19 @@ def run(argv=None):
     if not args.output:
         print("ERROR: Output file name is required.", file=sys.stderr)
         return 1, None
-    if args.hosts or args.host_id >= 0:
-        print(f"ERROR: {modes.MULTI_HOST_NOT_PORTED}", file=sys.stderr)
-        return 1, None
     try:
         opt = options_from_args(args)
+        if args.hosts or args.host_id >= 0:
+            opt.n_hosts, opt.host_id = detect_topology(args.hosts,
+                                                       args.host_id)
+        else:
+            opt.n_hosts, opt.host_id = detect_topology_implicit()
     except ValueError as e:
         print(f"ERROR: {e}", file=sys.stderr)
+        return 1, None
+    if opt.n_hosts > 1 and not opt.temp_dir:
+        print("ERROR: multi-host runs need a shared temp dir (-d) and "
+              "divide-and-conquer (-m).", file=sys.stderr)
         return 1, None
     param = Params.make(
         opt.type, match=args.match, mismatch=args.mismatch,

@@ -18,6 +18,16 @@ final. Errors 1/2 at task != 0 re-launch with the reference retry ladder;
 errors 3/4, and 1/2 at task 0, give None (the host ladder decides). A pair
 whose ladder width would exceed `MAX_WINDOW` gives None as well, as in the
 JAX batcher, and is counted and announced. A failed launch raises.
+
+Several devices (the counterpart of the JAX package's pairs mesh,
+`twilight_tpu/parallel/sharding.py` and its device_kernel.py:541-557):
+each selected device has its own copy of the substitution matrix, its own
+stream and its own launch count. A launch group takes --pair-batch pairs
+a device (and the byte budgets a device) of the route's size-sorted
+pairs, striped over the devices (device d takes group[d::n]), so that
+every device's launch holds pairs of similar sizes. Stealing and the
+ladder work on the launches of every device alike; the bits do not depend
+on which device aligned a pair.
 """
 from __future__ import annotations
 
@@ -256,48 +266,66 @@ class _Launch:
 
 class DeviceTalco:
     """The kernel contract of pipeline/aligner.py:302-378 over the CUDA
-    kernel (or, on a CPU device, its plain PyTorch version)."""
+    kernel (or, on a CPU device, its plain PyTorch version), on one device
+    or a list of them (a device may appear twice: two queues on one
+    card)."""
 
     supports_on_final = True
 
-    def __init__(self, option: Options, param: Params, device):
+    def __init__(self, option: Options, param: Params, devices):
         self.option = option
         self.param = param
-        self.device = torch.device(device)
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("no device given")
+        for d in self.devices:
+            if d.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported device {d}")
+        self.device = self.devices[0]
         self.p = 6 if option.type == "n" else 22
         self.base_flen = 1 << 12     # starting ladder width; wider is "wide"
         self.max_window = MAX_WINDOW
         self.marker = MARKER
         self.batch = max(1, option.pair_batch)
-        self.matrix, _ = talco_cuda.device_params(param, self.device)
-        self.stream = None
-        if self.device.type == "cuda":
+        self.matrices = [talco_cuda.device_params(param, d)[0]
+                         for d in self.devices]
+        self.streams = [None] * len(self.devices)
+        if any(d.type == "cuda" for d in self.devices):
             from . import build
             build.load()     # a failed build raises before any level runs
-            self.stream = torch.cuda.Stream(self.device)
-        # launches counts kernel launches on the card; long_launches and
-        # wide_launches count launches by route on either device, and
-        # ladder_relaunches the pairs the retry ladder sent back to one
+            self.streams = [torch.cuda.Stream(d) if d.type == "cuda"
+                            else None for d in self.devices]
+        # launches counts kernel launches on the card; launches_by_device
+        # counts the launches of each device in `devices` (of the plain
+        # version on a CPU device); long_launches and wide_launches count
+        # launches by route on either device, and ladder_relaunches the
+        # pairs the retry ladder sent back to one
         self.stats = {"launches": 0, "pairs": 0, "zero_length": 0,
                       "pairs_on_device": 0, "host_stolen": 0,
                       "err3_fallbacks": 0, "task0_errors": 0,
                       "long_launches": 0, "wide_launches": 0,
-                      "ladder_relaunches": 0, "host_wide": 0}
+                      "ladder_relaunches": 0, "host_wide": 0,
+                      "launches_by_device": [0] * len(self.devices)}
 
     def close(self) -> None:
-        """Wait for the stream: no launch outlives the run."""
-        if self.stream is not None:
-            self.stream.synchronize()
+        """Wait for every stream: no launch outlives the run."""
+        for stream in self.streams:
+            if stream is not None:
+                stream.synchronize()
 
     def summary(self) -> str:
-        return (f"{_TAG} {self.device}: "
+        return (f"{_TAG} {', '.join(str(d) for d in self.devices)}: "
                 + " ".join(f"{k}={v}" for k, v in self.stats.items()))
 
     def _launch(self, chunk, padlen, prepared, metas, task, leaf,
-                flen_param, xdrop) -> _Launch:
-        cuda = self.device.type == "cuda"
+                flen_param, xdrop, q: int = 0) -> _Launch:
+        """One launch of `chunk` on device `q` of `devices`."""
+        device, matrix, stream = (self.devices[q], self.matrices[q],
+                                  self.streams[q])
+        cuda = device.type == "cuda"
+        self.stats["launches_by_device"][q] += 1
         if leaf:
             st = pack_batch_leaf(chunk, prepared, metas, padlen, self.p,
                                  self.param, flen_param, xdrop,
@@ -312,22 +340,22 @@ class DeviceTalco:
         if not cuda:
             host = torch.empty(nbytes, dtype=torch.uint8)
             talco_cuda.talco_align(
-                st.ints, st.floats, st.offs, st.ref, st.qry, self.matrix,
+                st.ints, st.floats, st.offs, st.ref, st.qry, matrix,
                 p=self.p, marker=self.marker, scratch_bytes=scratch,
                 out=out_views(host, b, padlen))
             return _Launch(chunk, st, host, None, padlen)
-        with torch.cuda.stream(self.stream):
-            dev = st.views(st.buf.to(self.device, non_blocking=True))
-            obuf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            dev = st.views(st.buf.to(device, non_blocking=True))
+            obuf = torch.empty(nbytes, dtype=torch.uint8, device=device)
             offs, ints, floats, ref, qry = dev
             talco_cuda.talco_align(
-                ints, floats, offs, ref, qry, self.matrix, p=self.p,
+                ints, floats, offs, ref, qry, matrix, p=self.p,
                 marker=self.marker, scratch_bytes=scratch,
                 out=out_views(obuf, b, padlen))
             host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
             host.copy_(obuf, non_blocking=True)
             ev = torch.cuda.Event()
-            ev.record(self.stream)
+            ev.record(stream)
         self.stats["launches"] += 1
         return _Launch(chunk, st, host, ev, padlen)
 
@@ -428,19 +456,28 @@ class DeviceTalco:
                     results[i] = None
                     note(i, None)
             launches: List[_Launch] = []
+            n_dev = len(self.devices)
             for (long_, wide, leaf), idxs in buckets.items():
                 # size-sorted, so a launch's blocks carry similar work
                 idxs.sort(key=lambda i: -(prepared[i][4][0]
                                           + prepared[i][4][1]))
                 rows, esz = (1, 1) if leaf else (p8_of(self.p), 4)
-                for chunk, padlen in split_launches(
-                        idxs, prepared, flen_param, rows, esz, self.batch,
-                        marker=self.marker):
-                    launches.append(self._launch(
-                        chunk, padlen, prepared, metas, task, leaf,
-                        flen_param, xdrop))
-                    self.stats["long_launches"] += int(long_)
-                    self.stats["wide_launches"] += int(wide)
+                # a group holds every device's share; striped, so that
+                # each device's launch holds pairs of similar sizes
+                for group, _ in split_launches(
+                        idxs, prepared, flen_param, rows, esz,
+                        self.batch * n_dev, marker=self.marker,
+                        staging_budget=STAGING_BUDGET * n_dev,
+                        scratch_budget=SCRATCH_BUDGET * n_dev):
+                    for q in range(n_dev):
+                        for chunk, padlen in split_launches(
+                                group[q::n_dev], prepared, flen_param, rows,
+                                esz, self.batch, marker=self.marker):
+                            launches.append(self._launch(
+                                chunk, padlen, prepared, metas, task, leaf,
+                                flen_param, xdrop, q))
+                            self.stats["long_launches"] += int(long_)
+                            self.stats["wide_launches"] += int(wide)
 
             # steal pairs from the tail onto the host kernel while the
             # launches run (TWILIGHT_NO_STEAL pins them to the device)
@@ -499,23 +536,32 @@ class DeviceTalco:
         return results
 
 
+def cpu_device_count() -> int:
+    """CPU devices --backend cpu offers (TWILIGHT_TORCH_CPU_DEVICES,
+    default 1): the counterpart of the JAX package's virtual CPU devices,
+    so that a host with no GPU runs the multi-device batcher."""
+    raw = os.environ.get("TWILIGHT_TORCH_CPU_DEVICES", "1")
+    if not raw.isdigit() or int(raw) < 1:
+        raise ValueError(f"TWILIGHT_TORCH_CPU_DEVICES={raw!r}: want a "
+                         "positive integer")
+    return int(raw)
+
+
 def make_device_kernel(option: Options, param: Params):
-    """The batcher for --backend cuda (first selected GPU) or cpu (the
-    plain version on CPU tensors); None for the host backends."""
+    """The batcher for --backend cuda (every selected GPU) or cpu (the
+    plain version on CPU tensors, one queue a selected CPU device); None
+    for the host backends."""
     backend = option.device_backend
     if backend in ("numpy", "native"):
         return None
     if backend == "cpu":
-        select_devices(1, option)
-        return DeviceTalco(option, param, torch.device("cpu"))
+        chosen = select_devices(cpu_device_count(), option)
+        return DeviceTalco(option, param, [torch.device("cpu")] * len(chosen))
     if backend != "cuda":
         raise ValueError(f"unknown backend {backend!r}")
     if not torch.cuda.is_available():
         raise RuntimeError("--backend cuda needs a CUDA device, and "
                            "torch.cuda.is_available() is false")
     chosen = select_devices(torch.cuda.device_count(), option)
-    if len(chosen) > 1:
-        print(f"[twilight-tpu-torch] Using 1 of {len(chosen)} selected "
-              f"devices (cuda:{chosen[0]}); multi-GPU runs are not ported "
-              "yet", file=sys.stderr)
-    return DeviceTalco(option, param, torch.device("cuda", chosen[0]))
+    return DeviceTalco(option, param,
+                       [torch.device("cuda", i) for i in chosen])

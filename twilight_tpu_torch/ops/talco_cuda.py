@@ -46,6 +46,7 @@ qry_len) exceeds `MAX_WINDOW`, which a correct packer never produces.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -177,25 +178,30 @@ def talco_align(ints, floats, offs, ref, qry, matrix, *, p: int,
         return paths, tail
     from . import build
     lib = build.load()
-    scratch = torch.empty(max(int(scratch_bytes), 256), dtype=torch.uint8,
-                          device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     vp = ctypes.c_void_p
-    rc = lib.talco_xdrop_launch(
-        p, int(leaf), vp(ints.data_ptr()), vp(floats.data_ptr()),
-        vp(offs.data_ptr()), vp(ref.data_ptr()), vp(qry.data_ptr()),
-        vp(matrix.data_ptr()), matrix.shape[0],
-        vp(scratch.data_ptr()), scratch.numel(),
-        vp(paths.data_ptr()), vp(tail.data_ptr()),
-        b, padlen, marker, vp(stream))
+    # cudaLaunchKernel (and the kernel's shared-memory attribute) act on
+    # the calling thread's current device: make it the tensors' device
+    with torch.cuda.device(dev):
+        scratch = torch.empty(max(int(scratch_bytes), 256),
+                              dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.talco_xdrop_launch(
+            p, int(leaf), vp(ints.data_ptr()), vp(floats.data_ptr()),
+            vp(offs.data_ptr()), vp(ref.data_ptr()), vp(qry.data_ptr()),
+            vp(matrix.data_ptr()), matrix.shape[0],
+            vp(scratch.data_ptr()), scratch.numel(),
+            vp(paths.data_ptr()), vp(tail.data_ptr()),
+            b, padlen, marker, vp(stream))
     if rc != 0:
         raise RuntimeError(f"talco_xdrop launch failed: "
                            f"{build.error_string(rc)} (cudaError {rc})")
-    talco_align.launches += 1
+    with _launches_lock:
+        talco_align.launches += 1
     return paths, tail
 
 
 talco_align.launches = 0
+_launches_lock = threading.Lock()   # the batcher launches off the main thread
 
 
 def launch_config(leaf: bool, marker: int = MARKER, msize: int = 32) -> dict:

@@ -18,9 +18,6 @@ from ..seqio.fasta import iter_fasta
 from . import progressive
 from .placement import get_placement_tree
 
-MULTI_HOST_NOT_PORTED = ("multi-host runs (--hosts/--host-id) are not "
-                         "ported to twilight-tpu-torch yet.")
-
 
 def run(option: Options, param: Params, kernel=None,
         prune: bool = False, write_prune: bool = False) -> None:
@@ -107,10 +104,17 @@ def run_default(database: SequenceDB, option: Options, param: Params,
         if option.host_id == 0:
             writer.write_subtrees(tree, partition, option)
 
-    # multi-host subtree dispatch is not ported: the port's command line
-    # rejects --hosts/--host-id, so n_hosts is 1
+    # multi-host: deterministic balanced assignment of subtrees to hosts
+    # (the reference runs them serially — twilight-main.cpp:139-176)
+    my_subtrees = None
     if multi and option.n_hosts > 1:
-        raise ValueError(MULTI_HOST_NOT_PORTED)
+        from ..parallel.distributed import assign_subtrees
+        sizes = [(name, cnt)
+                 for name, (_, cnt) in partition.partitions_root.items()]
+        my_subtrees = set(
+            assign_subtrees(sizes, option.n_hosts)[option.host_id])
+        print(f"Host {option.host_id}/{option.n_hosts}: "
+              f"{len(my_subtrees)} subtrees.", file=sys.stderr)
 
     import time
     t_all0 = time.time()
@@ -120,6 +124,8 @@ def run_default(database: SequenceDB, option: Options, param: Params,
         t_sub0 = time.time()
         proceeded += 1
         subtree = tree.all_nodes[name].grp_id if multi else -1
+        if my_subtrees is not None and name not in my_subtrees:
+            continue
         if multi and option.resume and _load_subtree_checkpoint(
                 database, option, sub_root_t.all_nodes[name], subtree):
             print(f"Resumed subtree {subtree} from checkpoint.",
@@ -165,6 +171,53 @@ def run_default(database: SequenceDB, option: Options, param: Params,
     if multi:
         print(f"Finished all subalignments in {int(time.time() - t_all0)} "
               "s.", file=sys.stderr)
+        if option.n_hosts > 1:
+            from ..parallel import distributed
+            if distributed.distributed_live():
+                # a torch.distributed group: all-gather root states over
+                # gloo instead of polling the shared filesystem
+                # (collective — every host participates, then non-zero
+                # hosts exit)
+                local = {}
+                for name in (my_subtrees or ()):
+                    meta = sub_root_t.all_nodes[name]
+                    local[tree.all_nodes[name].grp_id] = dict(
+                        msa_freq=meta.msa_freq, aln_len=meta.aln_len,
+                        aln_num=meta.aln_num, aln_weight=meta.aln_weight)
+                print(f"Host {option.host_id}: exchanging "
+                      f"{len(local)} subtree states by all-gather.",
+                      file=sys.stderr)
+                gathered = distributed.exchange_subtree_states_collective(
+                    local)
+                if option.host_id != 0:
+                    return  # host 0 runs the merge
+                for name in partition.partitions_root:
+                    subtree = tree.all_nodes[name].grp_id
+                    meta = sub_root_t.all_nodes[name]
+                    if not meta.seqs_included:  # another host's subtree
+                        if subtree not in gathered:
+                            raise RuntimeError(
+                                f"no host produced subtree {subtree}")
+                        _register_subtree_state(database, option, meta,
+                                                subtree, gathered[subtree])
+            else:
+                if option.host_id != 0:
+                    return  # host 0 runs the merge
+                all_ids = [tree.all_nodes[name].grp_id
+                           for name in partition.partitions_root]
+                print(f"Host 0: waiting for {len(all_ids)} subtree "
+                      "checkpoints in the shared temp dir.",
+                      file=sys.stderr)
+                distributed.exchange_subtree_states(option, all_ids)
+                for name in partition.partitions_root:
+                    subtree = tree.all_nodes[name].grp_id
+                    meta = sub_root_t.all_nodes[name]
+                    if not meta.seqs_included:  # processed on another host
+                        ok = _load_subtree_checkpoint(database, option,
+                                                      meta, subtree)
+                        if not ok:
+                            raise RuntimeError(
+                                f"missing checkpoint for subtree {subtree}")
         database.current_task = 2
         progressive.msa_on_subtree(sub_root_t, database, option, param,
                                    kernel=kernel)

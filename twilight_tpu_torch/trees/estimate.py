@@ -3,9 +3,9 @@
 Two distance modes:
   - unaligned sequences: hashed k-mer count profiles; distance is the
     cosine-angle metric d = -ln(max(cos, eps)) (Mash-like). The Gram matrix
-    X @ X.T is one large f32 matmul: on the GPU (`gram_on`, TF32 off) when
-    the caller gives a CUDA device and the product is worth the round trip,
-    NumPy otherwise.
+    X @ X.T is one large f32 matmul, always on the host (NumPy): the card
+    sums its contraction in another order, its low bits reach the tree's
+    branch lengths, and the workflow's output must be the host route's.
   - aligned sequences (iterative re-estimation, replacing the workflow's
     FastTree step): normalized Hamming p-distance over non-gap columns,
     with gappy columns masked first (the reference workflow's reduceLen.py
@@ -17,9 +17,9 @@ exposes it as the `parttree` tool option): when n > nj_cap, sample seeds,
 NJ the seeds, assign every sequence to its nearest seed, recurse per group,
 and graft subtrees onto the seed tree.
 
-Routing: a product goes to the GPU only when the caller's device is a CUDA
-device and the product's host estimate (2 n m k flops at HOST_FLOPS)
-exceeds GATE_ROUND_TRIPS round trips of the card route. A product on the
+Routing: a count product goes to the GPU only when the caller's device is
+a CUDA device and the product's host estimate (2 n m k flops at
+HOST_FLOPS) exceeds GATE_ROUND_TRIPS round trips of the card route. A product on the
 card either runs or raises: there is no host fallback behind it. Without a
 device the NumPy code below runs, operation for operation the JAX
 package's host code.
@@ -42,15 +42,13 @@ _TAG = "[twilight-tpu-torch]"
 # one core
 HOST_FLOPS = 3e10
 # One round trip of the card route: chip_smoke.py's `products` phase
-# (gram_on of a [64, 4096] f32 profile block: upload, the chunked
-# product, download, the median of 50 by the host clock) on an NVIDIA
-# H100 80GB HBM3 at a 700.00 W power limit: 0.707 ms.
-PRODUCT_ROUND_TRIP_S = 0.707e-3
+# (pair_counts_on of a [64, 1024] letter block, 4 letters: upload, the
+# one-hots, both products, download; the median of 50 by the host clock)
+# on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit: 0.213 ms.
+PRODUCT_ROUND_TRIP_S = 0.213e-3
 CARD_MIN_EST_S = GATE_ROUND_TRIPS * PRODUCT_ROUND_TRIP_S
 # bytes of one block of a product's output on the card
 OUT_BLOCK_BYTES = 1 << 30
-# columns of the Gram product's contraction summed in one f32 chain
-GRAM_K_CHUNK = 256
 # the JAX package's cut-off (seconds of host estimate) above which its
 # host Gram product runs in row blocks; kept so the bytes stay its bytes
 _HOST_ROW_BLOCK_EST_S = 20.0
@@ -84,42 +82,6 @@ def ieee_f32():
 def _block_rows(n_rows: int, out_cols: int, outputs: int = 1) -> int:
     return max(1, min(n_rows, OUT_BLOCK_BYTES // (4 * outputs
                                                    * max(out_cols, 1))))
-
-
-def gram_rows(xt: torch.Tensor, i0: int, i1: int) -> torch.Tensor:
-    """Rows i0:i1 of xt @ xt.T, f32, accumulated GRAM_K_CHUNK columns of
-    the contraction at a time (one product, then addmm_ a chunk). cuBLAS
-    sums each output over the contraction in one f32 chain: one product
-    over sim10k's 4096-column profiles came 1.26e-5 from host BLAS at
-    worst, chunks of 256 columns 1.3e-6 (chip_smoke.py's products phase,
-    H100)."""
-    a = xt[i0:i1]
-    out = a[:, :GRAM_K_CHUNK] @ xt[:, :GRAM_K_CHUNK].T
-    for k0 in range(GRAM_K_CHUNK, xt.shape[1], GRAM_K_CHUNK):
-        out.addmm_(a[:, k0:k0 + GRAM_K_CHUNK], xt[:, k0:k0 + GRAM_K_CHUNK].T)
-    return out
-
-
-def gram_on(x: np.ndarray, device: torch.device) -> np.ndarray:
-    """x @ x.T in f32 on `device` (TF32 off, `gram_rows`), in row blocks
-    of the output under OUT_BLOCK_BYTES, returned as a host f32 array. On
-    a CPU device this is the card route's plain version. The result
-    differs from host BLAS in the last bits (another summation order)."""
-    if device.type == "cuda":
-        gram_on.calls += 1
-    n = x.shape[0]
-    out = np.empty((n, n), dtype=np.float32)
-    xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)) \
-        .to(device)
-    rows = _block_rows(n, n)
-    with ieee_f32():
-        for i0 in range(0, n, rows):
-            torch.from_numpy(out[i0:i0 + rows]).copy_(
-                gram_rows(xt, i0, i0 + rows))
-    return out
-
-
-gram_on.calls = 0
 
 
 def one_hots_on(mat: np.ndarray, letters, device: torch.device):
@@ -207,15 +169,12 @@ def kmer_profiles(seqs: Sequence[str], k: int = 8,
     return out
 
 
-def _gram(x: np.ndarray, device: Optional[torch.device]) -> np.ndarray:
-    """x @ x.T: on the card when `device` is a CUDA device and the host
-    estimate passes the gate; else host BLAS, in row blocks above the JAX
-    package's 20 s estimate (its host route's own blocking)."""
+def _gram(x: np.ndarray) -> np.ndarray:
+    """x @ x.T on the host, whatever the device: host BLAS, in row blocks
+    above the JAX package's 20 s estimate (its host route's own
+    blocking)."""
     n, dim = x.shape
-    host_est_s = host_estimate_s(n, n, dim)
-    if on_card(device, host_est_s):
-        return gram_on(x, device)
-    if host_est_s > _HOST_ROW_BLOCK_EST_S:
+    if host_estimate_s(n, n, dim) > _HOST_ROW_BLOCK_EST_S:
         g = np.empty((n, n), dtype=np.float32)
         blk = max(512, n // 8)
         for i0 in range(0, n, blk):
@@ -224,10 +183,10 @@ def _gram(x: np.ndarray, device: Optional[torch.device]) -> np.ndarray:
     return x @ x.T
 
 
-def pairwise_distances(profiles: np.ndarray,
-                       device: Optional[torch.device] = None) -> np.ndarray:
-    """Cosine-angle distance matrix from L2-normalized profiles."""
-    cos = np.clip(_gram(profiles, device), 1e-6, 1.0)
+def pairwise_distances(profiles: np.ndarray) -> np.ndarray:
+    """Cosine-angle distance matrix from L2-normalized profiles (on the
+    host)."""
+    cos = np.clip(_gram(profiles), 1e-6, 1.0)
     d = -np.log(cos)
     np.fill_diagonal(d, 0.0)
     return d.astype(np.float64)
@@ -348,8 +307,9 @@ def build_guide_tree(names: Sequence[str], seqs: Sequence[str],
 
     aligned=False: k-mer sketch distances (initial iteration).
     aligned=True: MSA p-distances (re-estimation between iterations).
-    device: where the distance products may run (see the module's
-    docstring); None keeps them on the host. steps: a list that gets one
+    device: where the msa count products may run (see the module's
+    docstring); None keeps them on the host. The Gram product of the
+    k-mer profiles always runs on the host. steps: a list that gets one
     (name, seconds) a step: "kmer", "gram" or "msa distances", "nj".
     """
     steps = [] if steps is None else steps
@@ -361,7 +321,7 @@ def build_guide_tree(names: Sequence[str], seqs: Sequence[str],
         prof = kmer_profiles(seqs, k=k)
         t1 = time.time()
         steps.append(("kmer", t1 - t0))
-        dist = pairwise_distances(prof, device=device)
+        dist = pairwise_distances(prof)
         steps.append(("gram", time.time() - t1))
     rng = np.random.default_rng(seed)
     print(f"{_TAG} estimated distances for {len(names)} sequences "

@@ -6,8 +6,9 @@ twilight per iteration, scripts/reduceLen.py masks gappy columns before
 tree inference — our msa_distances does that masking internally).
 
 The backend is resolved once, by the command line's own rule
-(`cli.resolve_backend`): under `cuda` the tree estimation's distance
-products may run on the GPU (trees/estimate.py) and every alignment runs
+(`cli.resolve_backend`): under `cuda` the tree estimation's count
+products may run on the GPU (trees/estimate.py; the Gram product stays
+on the host) and every alignment runs
 the port's command line in this process, each with a fresh DP batcher.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ _TAG = "[twilight-tpu-torch]"
 
 
 def resolve(backend: str) -> Tuple[str, Optional[torch.device]]:
-    """(the backend the alignments run, the device of the distance
+    """(the backend the alignments run, the device of the count
     products: the GPU under cuda, else None for the host). auto without a
     GPU raises RuntimeError with the command line's message."""
     from .. import cli
