@@ -94,20 +94,44 @@ Phases (each prints its own lines; any failure exits non-zero):
    torch.distributed gloo group (no host flags), the subtree states
    exchanged by all-gather: each process's subtrees, wall and launches
    (both must launch), host 1 writes no output, host 0's md5 equals a
-   one-process --backend native run with the same -m;
+   one-process --backend native run's with the same -m (pinned);
 16. multidevice (`multidevice`): sim2k with the device forced through
    DeviceTalco(devices=[cuda:0, cuda:0]) (two launch queues, each with
    its stream and matrix copy) in turns with one queue: the golden md5,
-   launches split over both queues, the walls side by side.
+   launches split over both queues, the walls side by side;
+17. fuzz (`fuzz`): the kernel fuzz (tools/fuzz_talco.py) with a seed of
+   its own (FUZZ_SEED): 128 short pairs (nt and protein, freq and leaf, 32
+   each, 8 of them at marker 64) held to the NumPy oracle, 32 long pairs
+   (2049-32768 columns) and 8 wide freq pairs (each at width 4096 and at
+   8192 or 16384) held to the native host kernel; none may differ, and
+   errors 1 and 2 must both be seen;
+18. bench (`bench`): the kernel bench (tools/bench_kernel.py) on short nt
+   freq (batch 128, 1700 columns), nt leaf, protein freq, long nt freq (30
+   kb) and wide nt freq: pairs/s with copies, ms/pair resident, us per
+   diagonal, bound and its share, each with the card's name and power
+   limit, and us per diagonal beside PERF.md section 6's (a print);
+19. quality (`quality`): the quality harness (tools/quality_harness.py)
+   at sim2k's shape (-n 2000 -l 1000 --seed 2) with --backend cuda and
+   --backend native as two processes side by side, started after the wide
+   phase so that they run beside the parity, long parity and fuzz phases'
+   host references (which time nothing): SP per pair of each strategy
+   (true tree, placement with the tree, grafting, iterative), every output
+   md5-equal between the two, the cuda run launching;
+20. front door (`frontdoor`): prot_16 with --backend native through
+   `python -m twilight_tpu_torch` as it runs, with torch refused and with
+   torch imported first (timing the import), in turns, each its golden
+   md5; -h with torch refused.
 
 `--only a,b,...` runs some phases (build always runs; products needs
-workflow) and prints no kernels line.
+workflow) and prints no kernels line. Each phase's wall is printed
+([timing]).
 
 Only the port is imported (twilight_tpu_torch); its simulator makes the
-sets. The products' figures are a JSON line of their own. The last two
-lines are a JSON object with the kernels' figures
-(K1/K2, K4, K5, K6-K10: time, plain time, bound, launches) and the result
-line {"ok": true, "device": {...}}. Without a CUDA device, or without the
+sets, and the inputs, launches, host references and bounds of the kernel
+phases are its tools' (tools/talco_inputs.py). The products' figures are a
+JSON line of their own. The last two lines are a JSON object with the
+kernels' figures (K1/K2, K4, K5, K6-K10: time, plain time, bound,
+launches) and the result line {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero.
 """
 import hashlib
@@ -128,6 +152,9 @@ GOLDEN_PROT16 = "8174145594cfcd5404008e233e10ea30"
 GOLDEN_SIM2K_DEFER = "224c800d696d24cac399a1630747c39a"
 GOLDEN_S20 = "36d57b4abdd43021ec64b58c40be48be"   # simulate -n 20 -l 30000
 GOLDEN_P12 = "f800c5b151b27b3e47881b1865b46a18"   # --type p -n 12 -l 3000
+# sim10k --rooted -m 2000 --backend native in one process (the H100's host
+# in every call since it was first run, and a CPU host)
+GOLDEN_MULTIHOST = "5241d7948d7fc8f4acca92ff7f6608dd"
 KERNEL_SOURCE = "twilight_tpu_torch/ops/csrc/talco_xdrop.cu"
 REPLACES = "twilight_tpu/ops/talco_pallas_g8.py:1672"
 REPLACES_LONG = "twilight_tpu/ops/talco_pallas_g8.py:1556"   # hbm_in
@@ -144,6 +171,52 @@ PROC_TIMEOUT_S = 600          # each process of the multihost phase
 PLACE_ROWS = 5000             # placement counts: 5000 x 5000 rows
 PLACE_N, PLACE_BACKBONE = 2500, 2000   # placement mode: 2000 + 500
 PRODUCT_REPS = 3              # card routes timed by the host clock
+FUZZ_SEED = 20261019          # the fuzz phase's seed (the parity phases':
+                              # 20261016-20261018)
+# the fuzz phase's runs: (route, pairs a path and mode, marker)
+FUZZ_RUNS = [("short", 24, 1024), ("short", 8, 64), ("long", 8, 1024),
+             ("wide", 4, 1024)]
+# the bench phase's launches: (label, bench_kernel.bench arguments)
+BENCH_RUNS = [("short nt freq", {}), ("short nt leaf", {"leaf": True}),
+              ("short protein freq", {"protein": True}),
+              ("long nt freq", {"route": "long"}),
+              ("wide nt freq", {"route": "wide"})]
+# us per diagonal of the same routes in PERF.md section 6 (review run, PR
+# 4; NVIDIA H100 80GB HBM3, 700 W), printed beside the bench's
+PERF_US_PER_DIAG = {"short nt freq": 1.917, "short nt leaf": 1.144,
+                    "short protein freq": 4.675, "long nt freq": 2.121,
+                    "wide nt freq": 8.238}
+QUALITY_ARGS = ("-n", "2000", "-l", "1000", "--seed", "2")   # sim2k's shape
+FRONTDOOR_REPS = 2
+# a fresh interpreter in which importing torch raises (a meta-path finder
+# refuses it and records each attempt) runs `python -m twilight_tpu_torch`
+# with the arguments after the code
+NO_TORCH = r"""
+import atexit, importlib.abc, runpy, sys
+attempts = []
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] == "torch":
+            attempts.append(name)
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+atexit.register(lambda: print("TORCH_ATTEMPTS", attempts, file=sys.stderr))
+sys.argv = ["twilight_tpu_torch"] + sys.argv[1:]
+runpy.run_module("twilight_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+# the same with torch imported first, as every run imported it before the
+# front door; prints the import's time
+TORCH_FIRST = r"""
+import runpy, sys, time
+t0 = time.perf_counter()
+import torch
+print("IMPORT_TORCH_S", time.perf_counter() - t0, file=sys.stderr)
+sys.argv = ["twilight_tpu_torch"] + sys.argv[1:]
+runpy.run_module("twilight_tpu_torch", run_name="__main__", alter_sys=True)
+"""
 # the probe kernels (K6-K10): wrapper, replaced pallas_call, the variant
 # whose time is the kernel's "ms", f32 operations per loop step
 GRP_W = 8 * 640
@@ -159,17 +232,6 @@ PROBES = [
     ("nested", "K10", "tools/probe_loop_costs.py:391", "nested",
      37 * GRP_W + 8),
 ]
-# f32 operations per DP cell of talco_xdrop.cu: similarity<P> (P = 6: 5
-# rows of 10 mul + 5 add, 2 x 5 gap terms of 2 mul + 1 add, 1 div = 106;
-# P = 22: 21 rows of 16 + 24 + 15 + 7 + 1, 2 x 21 gap terms of 3, 1 div =
-# 1450; leaf: a matrix entry + 0.0f = 1) plus the recurrence (5 adds: the
-# match and 4 gap terms; 6 compares: 2 gap pointers, 2 for the best
-# state, the X-drop cut, the live test; 4 selects; the max = 16)
-OPS_PER_CELL = {"nt freq": 122, "nt leaf": 17, "protein freq": 1466}
-F32_PEAK = 67e12               # H100 SXM f32 outside the tensor cores
-HBM_PEAK = 3.35e12             # H100 SXM device memory, bytes/s
-
-
 class SmokeFailure(Exception):
     pass
 
@@ -177,51 +239,6 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def host_check(job):
-    """Host reference of one pair (runs in a worker): the NumPy oracle, or
-    the native host kernel when job["native"]; and the plain version on
-    CPU tensors at the launch's padlen unless job["plain"] is false."""
-    import numpy as np
-    import torch
-    torch.set_num_threads(1)
-    from twilight_tpu_torch.ops import talco_cuda, talco_host, talco_np
-    from twilight_tpu_torch.ops.device_kernel import Params
-    from twilight_tpu_torch.tools.talco_inputs import GE, GO, pack
-    p, leaf, marker, task = job["p"], job["leaf"], job["marker"], job["task"]
-    prep, meta = job["prep"], job["meta"]
-    param = Params.make("n" if p == 6 else "p")
-    rl, ql = prep[4]
-    if leaf:
-        from twilight_tpu_torch.ops.device_kernel import letter_lut
-        lut = letter_lut("n" if p == 6 else "p")
-        fr = np.zeros((rl, p), np.float32)
-        fq = np.zeros((ql, p), np.float32)
-        fr[np.arange(rl), lut[prep[2][0]]] = 1.0
-        fq[np.arange(ql), lut[prep[2][1]]] = 1.0
-        go = (np.full(rl, GO, np.float32), np.full(ql, GO, np.float32))
-        ge = (np.full(rl, GE, np.float32), np.full(ql, GE, np.float32))
-        gap_char = GE
-    else:
-        fr, fq, _, _, _, go, ge = prep
-        gap_char = 0.0 if task in (1, 2) else GE
-    tp = talco_np.TalcoRunParams(
-        param.scoring_matrix, GO, GE, gap_char, job["xdrop"],
-        flen=job["flen"], marker=marker)
-    engine = (talco_host.align_freq if job.get("native")
-              else talco_np.align_freq)
-    gold, gerr = engine(tp, fr, fq, go, ge, (meta[2], meta[3]))
-    if not job.get("plain", True):
-        return gold, int(gerr), None, None
-    st = pack([0], [prep], [meta], task, p, leaf, param, [job["flen"]],
-              [job["xdrop"]], marker, padlen=job.get("padlen", 2048))
-    mat = torch.from_numpy(param.scoring_matrix.astype(np.float32))
-    paths, tail = talco_cuda.talco_align(
-        st.ints, st.floats, st.offs, st.ref, st.qry, mat, p=p,
-        marker=marker, scratch_bytes=int(st.offs[-1]))
-    n = int(tail[0, 0])
-    return gold, int(gerr), paths[0, :n].numpy().copy(), tail[0].numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +284,7 @@ def phase_parity(torch, mp_pool, workers):
     from twilight_tpu_torch.ops import talco_cuda
     from twilight_tpu_torch.ops.device_kernel import Params
     from twilight_tpu_torch.tools.talco_inputs import make_pair, pack
+    from twilight_tpu_torch.tools import talco_inputs as ti
     rng = np.random.default_rng(20261016)
     # (p, leaf, marker, task, pairs, max length)
     groups = [(6, False, 1024, 0, 30, 2048), (6, False, 1024, 1, 14, 2048),
@@ -292,7 +310,7 @@ def phase_parity(torch, mp_pool, workers):
             flen.append(int(rng.integers(4, 24)) if kind == 7 else 4096)
         st = pack(list(range(n)), prepared, metas, task, p, leaf, param,
                   flen, xdrop, marker)
-        paths, tail = _launch_cuda(torch, st, p, marker)
+        paths, tail = ti.launch(torch, st, p, marker)
         for i in range(n):
             jobs.append({"p": p, "leaf": leaf, "marker": marker,
                          "task": task, "prep": prepared[i], "meta": metas[i],
@@ -304,7 +322,8 @@ def phase_parity(torch, mp_pool, workers):
           f"parity: launch counter advanced {launched}, expected "
           f"{len(groups)}")
     t0 = time.time()
-    bad, max_err, errs, _ = _hold(kern, _host_refs(mp_pool, jobs), "parity")
+    refs = ti.host_refs(mp_pool, jobs)
+    bad, max_err, errs, _ = ti.hold(kern, refs, "parity")
     print(f"[parity] {len(jobs)} pairs in {len(groups)} launches; error "
           f"codes {dict(sorted(errs.items()))}; oracle + plain version on "
           f"{workers} CPU workers in {time.time() - t0:.1f} s; "
@@ -323,6 +342,7 @@ def phase_time(torch):
     import numpy as np
     from twilight_tpu_torch.ops.device_kernel import Params
     from twilight_tpu_torch.tools.talco_inputs import make_pair, pack
+    from twilight_tpu_torch.tools import talco_inputs as ti
     rng = np.random.default_rng(7)
     shapes = [("nt freq", 6, False, 900, 1200), ("nt leaf", 6, True, 900,
                                                  1200),
@@ -338,7 +358,7 @@ def phase_time(torch):
         xdrop = [5000] * b
         st = pack(list(range(b)), prepared, metas, 0, p, leaf, param, flen,
                   xdrop, 1024, pin=True)
-        prod, resid, paths, tail = _launch_times(torch, st, p, b, 2048, 5)
+        prod, resid, paths, tail = ti.launch_times(torch, st, p, b, 2048, 5)
         check((tail[:, 1] == 0).all(),
               f"time/{name}: kernel errors {np.unique(tail[:, 1])}")
         # the plain version on CUDA tensors, for the first pairs
@@ -357,81 +377,11 @@ def phase_time(torch):
                "us_per_diagonal": 1e3 * resid / int(tail[:, 3].max()),
                "gcells_per_s_resident": cells / (resid * 1e6),
                "h2d_bytes": int(st.buf.numel())}
-        _talco_bound(res, name, b, 2048)
+        ti.talco_bound(res, name, b, 2048)
         out[name] = res
         print(f"[time] {name} batch {b} padlen 2048: "
               + json.dumps(res), flush=True)
     return out
-
-
-def _launch_cuda(torch, st, p, marker=1024):
-    """One launch of a packed batch on the card: (paths, tail) as numpy."""
-    from twilight_tpu_torch.ops import talco_cuda
-    from twilight_tpu_torch.ops.device_kernel import Params
-    dev = st.views(st.buf.to("cuda"))
-    mat = torch.from_numpy(
-        Params.make("n" if p == 6 else "p").scoring_matrix).cuda()
-    paths, tail = talco_cuda.talco_align(
-        dev[1], dev[2], dev[0], dev[3], dev[4], mat, p=p, marker=marker,
-        scratch_bytes=int(st.offs[-1]))
-    torch.cuda.synchronize()
-    return paths.cpu().numpy(), tail.cpu().numpy()
-
-
-def _host_refs(mp_pool, jobs):
-    """host_check over the jobs, the plain-version ones (slowest) first."""
-    order = sorted(range(len(jobs)), key=lambda j: not jobs[j]["plain"])
-    out = [None] * len(jobs)
-    for j, r in zip(order, mp_pool.map(host_check, [jobs[j] for j in order],
-                                       chunksize=1)):
-        out[j] = r
-    return out
-
-
-def _hold(kern, refs, label):
-    """Holds each kernel result (path, tail, key) to its host reference:
-    the error code and the path, and, where the plain version ran, the
-    whole tail and the path. Returns (mismatches, max |kernel - ref|,
-    error counts, pairs held to the plain version)."""
-    import numpy as np
-    bad, max_err, errs, nplain = 0, 0, {}, 0
-
-    def diff(a, b):
-        if len(a) != len(b):
-            return 2
-        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
-        return int(d.max()) if d.size else 0
-
-    for (kp, kt, key), (gold, gerr, pp, pt) in zip(kern, refs):
-        e = int(kt[1])
-        errs[e] = errs.get(e, 0) + 1
-        ok = e == gerr and (e != 0 or np.array_equal(kp, gold))
-        if e == 0 and gerr == 0:
-            max_err = max(max_err, diff(kp, gold))
-        if pt is not None:
-            nplain += 1
-            ok = ok and np.array_equal(kt, pt) and (
-                e != 0 or np.array_equal(kp, pp))
-            max_err = max(max_err, diff(kp, pp), int(np.abs(
-                kt.astype(np.int64) - pt.astype(np.int64)).max()))
-        if not ok:
-            bad += 1
-            print(f"[{label}] MISMATCH {key}: kernel tail {kt.tolist()}, "
-                  f"host err {gerr} len {len(gold)}, plain tail "
-                  f"{None if pt is None else pt.tolist()}", flush=True)
-    return bad, max_err, errs, nplain
-
-
-def _long_pair(rng, p, leaf, lo, hi, related=True):
-    """A pair whose longer side is above the 2048 bucket."""
-    import numpy as np
-    from twilight_tpu_torch.tools.talco_inputs import make_pair
-    while True:
-        length = int(np.exp(rng.uniform(np.log(lo), np.log(hi))))
-        prep, meta = make_pair(rng, p, leaf, length, related=related,
-                               cap=hi)
-        if max(prep[4]) > 2048:
-            return prep, meta
 
 
 def _crosses_w_s(tail, lens):
@@ -464,6 +414,7 @@ def phase_long_parity(torch, mp_pool, workers):
     from twilight_tpu_torch.ops import talco_cuda
     from twilight_tpu_torch.ops.device_kernel import Params
     from twilight_tpu_torch.tools.talco_inputs import WIDE_XDROP, pack
+    from twilight_tpu_torch.tools import talco_inputs as ti
     rng = np.random.default_rng(20261017)
     # (p, leaf, task, pairs, min length, max length)
     groups = [(6, False, 0, 20, 2100, 6000), (6, False, 1, 8, 2100, 6000),
@@ -492,7 +443,7 @@ def phase_long_parity(torch, mp_pool, workers):
             kind = 0 if cross else t % 10
             # unrelated pairs with a tight X-drop collapse the band (error
             # 1); a narrow ladder width overflows it (error 2)
-            prep, meta = _long_pair(rng, p, leaf, lo, hi,
+            prep, meta = ti.long_pair(rng, p, leaf, lo, hi,
                                     related=kind != 3)
             prepared.append(prep)
             metas.append(meta)
@@ -505,7 +456,7 @@ def phase_long_parity(torch, mp_pool, workers):
                                                esz, 128, marker=marker):
             st = pack(chunk, prepared, metas, task, p, leaf, param, flen,
                       xdrop, marker, padlen=padlen)
-            paths, tail = _launch_cuda(torch, st, p, marker)
+            paths, tail = ti.launch(torch, st, p, marker)
             padlens.append(padlen)
             for bi, i in enumerate(chunk):
                 plain = (not cross and max(prepared[i][4]) <= PLAIN_MAX_COLS
@@ -524,8 +475,8 @@ def phase_long_parity(torch, mp_pool, workers):
           f"long parity: launch counter advanced {launched}, expected "
           f"{len(padlens)}")
     t0 = time.time()
-    refs = _host_refs(mp_pool, jobs)
-    bad, max_err, errs, nplain = _hold(kern, refs, "long parity")
+    refs = ti.host_refs(mp_pool, jobs)
+    bad, max_err, errs, nplain = ti.hold(kern, refs, "long parity")
     lens = [j["prep"][4] for j in jobs]
     n_cross = sum(_crosses_w_s(kt, key[3]) for _, kt, key in kern)
     n_mid = sum(1 for ln in lens if 2048 < max(ln) <= 6200)
@@ -552,43 +503,6 @@ def phase_long_parity(torch, mp_pool, workers):
     check(errs.get(1, 0) > 0 and errs.get(2, 0) > 0,
           "long parity: errors 1 and 2 were not both exercised")
     return max_err, n_cross
-
-
-def _launch_times(torch, st, p, b, padlen, reps):
-    """(production ms, resident ms, host paths, host tail) of one batch:
-    production is H2D + kernel + D2H as the batcher issues them, resident
-    the kernel alone on inputs already on the card."""
-    from twilight_tpu_torch.ops import talco_cuda
-    from twilight_tpu_torch.ops.device_kernel import Params, out_views
-    from twilight_tpu_torch.tools.talco_inputs import timed
-    mat = torch.from_numpy(
-        Params.make("n" if p == 6 else "p").scoring_matrix).cuda()
-    scratch = int(st.offs[-1])
-    nbytes = b * 2 * padlen + b * 16
-    host_out = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-    obuf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
-
-    def production():
-        dev = st.views(st.buf.to("cuda", non_blocking=True))
-        talco_cuda.talco_align(
-            dev[1], dev[2], dev[0], dev[3], dev[4], mat, p=p,
-            scratch_bytes=scratch, out=out_views(obuf, b, padlen))
-        host_out.copy_(obuf, non_blocking=True)
-
-    resident = st.views(st.buf.to("cuda"))
-
-    def kernel_only():
-        talco_cuda.talco_align(
-            resident[1], resident[2], resident[0], resident[3],
-            resident[4], mat, p=p, scratch_bytes=scratch,
-            out=out_views(obuf, b, padlen))
-
-    prod = timed(torch, production, reps)
-    res = timed(torch, kernel_only, reps)
-    production()
-    torch.cuda.synchronize()
-    paths, tail = out_views(host_out, b, padlen)
-    return prod, res, paths.numpy().copy(), tail.numpy().copy()
 
 
 def _plain_ms(torch, st, p, want_paths, want_tail, label):
@@ -629,6 +543,7 @@ def phase_wide_parity(torch, mp_pool, workers):
     from twilight_tpu_torch.ops.device_kernel import Params
     from twilight_tpu_torch.tools.talco_inputs import (WIDE_XDROP, make_pair,
                                                        pack)
+    from twilight_tpu_torch.tools import talco_inputs as ti
     rng = np.random.default_rng(20261018)
     # (p, task, related pairs, unrelated pairs)
     groups = [(6, 0, 4, 3), (6, 1, 3, 0), (22, 0, 3, 0), (22, 1, 0, 3)]
@@ -650,7 +565,7 @@ def phase_wide_parity(torch, mp_pool, workers):
                     idxs, prepared, flen, talco_cuda.p8_of(p), 4, 128):
                 st = pack(chunk, prepared, metas, task, p, False, param,
                           flen, xdrop, 1024, pin=True, padlen=padlen)
-                paths, tail = _launch_cuda(torch, st, p)
+                paths, tail = ti.launch(torch, st, p)
                 nlaunch += 1
                 for bi, i in enumerate(chunk):
                     jobs.append({"p": p, "leaf": False, "marker": 1024,
@@ -667,8 +582,8 @@ def phase_wide_parity(torch, mp_pool, workers):
     check(talco_cuda.talco_align.launches - launches0 == nlaunch,
           "wide parity: launch counter mismatch")
     t0 = time.time()
-    refs = _host_refs(mp_pool, jobs)
-    bad, max_err, errs, _ = _hold(kern, refs, "wide parity")
+    refs = ti.host_refs(mp_pool, jobs)
+    bad, max_err, errs, _ = ti.hold(kern, refs, "wide parity")
     n_cross = sum(_crosses_w_s(kt, key[3]) for _, kt, key in kern)
     narrow = [int(kt[1]) for _, kt, key in kern if key[2] == 4096]
     widened = [int(kt[1]) for _, kt, key in kern if key[2] > 4096]
@@ -687,7 +602,7 @@ def phase_wide_parity(torch, mp_pool, workers):
     st, chunk, padlen, paths, tail, prepared, metas, param, flen, xdrop = \
         timing
     b = len(chunk)
-    prod, res, _, ttail = _launch_times(torch, st, 6, b, padlen, 2)
+    prod, res, _, ttail = ti.launch_times(torch, st, 6, b, padlen, 2)
     check(np.array_equal(ttail, tail), "wide time: results changed")
     cells = int(tail[:, 2].astype(np.int64).sum())
     # the plain version on the pair with the fewest diagonals
@@ -710,7 +625,7 @@ def phase_wide_parity(torch, mp_pool, workers):
                           f"{prepared[chunk[k]][4][1]}, width "
                           f"{flen[chunk[k]]}, {int(tail[k, 3])} diagonals, "
                           f"{int(tail[k, 2])} cells"}
-    _talco_bound(out, "nt freq", b, padlen)
+    ti.talco_bound(out, "nt freq", b, padlen)
     print("[wide time] nt freq: " + json.dumps(out), flush=True)
     return max_err, out, n_cross
 
@@ -725,6 +640,7 @@ def phase_long_time(torch):
     from twilight_tpu_torch.ops import talco_cuda
     from twilight_tpu_torch.ops.device_kernel import Params
     from twilight_tpu_torch.tools.talco_inputs import make_pair, pack
+    from twilight_tpu_torch.tools import talco_inputs as ti
     rng = np.random.default_rng(8)
     shapes = [("nt freq", 6, False, 29000, 30000),
               ("nt leaf", 6, True, 29000, 30000),
@@ -747,7 +663,7 @@ def phase_long_time(torch):
                                              esz, 128)
         st = pack(chunk, prepared, metas, 0, p, leaf, param, flen, xdrop,
                   1024, pin=True, padlen=padlen)
-        prod, res, paths, tail = _launch_times(torch, st, p, b, padlen, 3)
+        prod, res, paths, tail = ti.launch_times(torch, st, p, b, padlen, 3)
         check((tail[:, 1] == 0).all(),
               f"long time/{name}: kernel errors {np.unique(tail[:, 1])}")
         cells = int(tail[:, 2].astype(np.int64).sum())
@@ -762,16 +678,16 @@ def phase_long_time(torch):
                 "us_per_diagonal": 1e3 * res / int(tail[:, 3].max()),
                 "gcells_per_s_resident": cells / (res * 1e6),
                 "h2d_bytes": int(st.buf.numel())}
-        _talco_bound(res_, name, b, padlen)
+        ti.talco_bound(res_, name, b, padlen)
         out[name] = res_
         print(f"[long time] {name}: " + json.dumps(res_), flush=True)
     # the plain version for one ~3000-column nt freq pair (long route)
     param = Params.make("n")
-    prep, meta = _long_pair(rng, 6, False, 3000, 3001)
+    prep, meta = ti.long_pair(rng, 6, False, 3000, 3001)
     padlen = dk.launch_padlen(max(prep[4]))
     st = pack([0], [prep], [meta], 0, 6, False, param, [4096], [5000], 1024,
               padlen=padlen)
-    paths, tail = _launch_cuda(torch, st, 6)
+    paths, tail = ti.launch(torch, st, 6)
     check(tail[0, 1] == 0, "long time/plain: kernel error")
     plain_ms = _plain_ms(torch, st, 6, paths, tail, "long time/plain")
     out["plain"] = {"ms_per_pair": plain_ms,
@@ -854,26 +770,6 @@ def phase_probes(torch):
         check(launches[fn.__name__] > 0,
               f"probes: {fn.__name__} never launched on the tool's run")
     return res, launches
-
-
-def bound_ms(ops, nbytes):
-    """(least ms the card could take, what bounds it): the larger of the
-    f32 operations over the f32 peak and the bytes over the memory rate
-    (each input read once, each output written once)."""
-    t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_PEAK
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def _talco_bound(res, name, b, padlen):
-    """Adds the per-pair bound and roofline share of one timed launch to
-    its result: dp_cells x OPS_PER_CELL operations, the staging buffer in
-    and paths + tails out."""
-    ops = res["dp_cells"] * OPS_PER_CELL[name] / b
-    nbytes = (res["h2d_bytes"] + b * 2 * padlen + b * 16) / b
-    res["bound_ms_per_pair"], res["bound_by"] = bound_ms(ops, nbytes)
-    res["roofline_share"] = (res["bound_ms_per_pair"]
-                             / res["ms_per_pair_resident"])
 
 
 def _md5(path):
@@ -1159,6 +1055,7 @@ def _product(torch, name, host, card, resident, h2d, ops, in_bytes):
     counts to the host's bit for bit."""
     import numpy as np
     from twilight_tpu_torch.tools.talco_inputs import timed
+    from twilight_tpu_torch.tools import talco_inputs as ti
     t0 = time.perf_counter()
     want = host()
     host_ms = (time.perf_counter() - t0) * 1e3
@@ -1182,7 +1079,7 @@ def _product(torch, name, host, card, resident, h2d, ops, in_bytes):
            "card_ms": timed(torch, resident, 5),
            "h2d_ms": timed(torch, h2d, 3), "d2h_ms": timed(torch, d2h, 3),
            "host_ms": host_ms, "ops": ops, "bytes": in_bytes + out_bytes}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(ops, in_bytes + out_bytes)
+    rec["bound_ms"], rec["bound_by"] = ti.bound_ms(ops, in_bytes + out_bytes)
     rec["library_ms"] = rec["card_ms"]
     rec["bit_equal"] = all(np.array_equal(g, w) for g, w in zip(got, want))
     check(rec["bit_equal"], f"products/{name}: counts differ from the "
@@ -1353,16 +1250,9 @@ def phase_multihost(torch, td):
     host 0 merges and writes the MSA. Held: both processes launch the
     kernel, take the all-gather (no checkpoint polling), host 1 writes no
     output, and host 0's md5 equals a one-process --backend native run
-    with the same -m."""
-    from twilight_tpu_torch import cli
+    with the same -m (GOLDEN_MULTIHOST)."""
     argv = simulate(td, *SIM10K) + ["--rooted", "-m", str(MULTIHOST_M)]
     _clean_env()
-    nat = os.path.join(td, "mh_native.aln")
-    t0 = time.time()
-    rc, _ = cli.run(argv + ["--backend", "native", "-d",
-                            os.path.join(td, "mh_native_tmp"), "-o", nat])
-    native_s = time.time() - t0
-    check(rc == 0, f"multihost: the native run exited {rc}")
     outs = [os.path.join(td, f"mh_h{r}.aln") for r in range(2)]
     logs = [os.path.join(td, f"mh_h{r}.log") for r in range(2)]
     init = "file://" + os.path.join(td, "mh_rendezvous")
@@ -1409,16 +1299,14 @@ def phase_multihost(torch, td):
           f"multihost: {[h['subtrees'] for h in hosts]} subtrees of "
           f"{parts}")
     check(not os.path.exists(outs[1]), "multihost: host 1 wrote an output")
-    md5, md5_native = _md5(outs[0]), _md5(nat)
-    check(md5 == md5_native, f"multihost: host 0's md5 {md5} != native "
-          f"{md5_native}")
-    res = {"subtrees": parts, "hosts": hosts, "both_s": both_s,
-           "native_s": native_s, "md5": md5}
+    md5 = _md5(outs[0])
+    check(md5 == GOLDEN_MULTIHOST, f"multihost: host 0's md5 {md5} != "
+          f"native {GOLDEN_MULTIHOST}")
+    res = {"subtrees": parts, "hosts": hosts, "both_s": both_s, "md5": md5}
     print(f"[multihost] sim10k -m {MULTIHOST_M}: {parts} subtrees, "
           f"{[h['subtrees'] for h in hosts]} a host; two processes on one "
           f"card {both_s:.3f} s (launches {[h['launches'] for h in hosts]})"
-          f" against one native process {native_s:.3f} s; md5 {md5} equals "
-          "native's", flush=True)
+          f"; md5 {md5} equals one native process's", flush=True)
     return res
 
 
@@ -1454,9 +1342,196 @@ def phase_multidevice(torch, td):
     return {"walls": walls, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# the port's tools and its front door
+# ---------------------------------------------------------------------------
+
+def phase_fuzz(torch, mp_pool, workers):
+    """The kernel fuzz (tools/fuzz_talco.py) on the card with a seed of its
+    own (FUZZ_SEED): short (nt and protein, freq and leaf, 32 pairs each, 8
+    of them at marker 64), long (8 pairs each) and wide (4 nt and 4 protein
+    freq pairs, each at width 4096 and at 8192 or 16384), every run held to
+    the oracle; none may differ, and errors 1 and 2 must both be seen."""
+    from twilight_tpu_torch.tools import fuzz_talco
+    print(f"[fuzz] seed {FUZZ_SEED}, oracle on {workers} CPU workers",
+          flush=True)
+    runs, errs = [], {}
+    for route, n, marker in FUZZ_RUNS:
+        t0 = time.time()
+        res = fuzz_talco.fuzz(route, n, FUZZ_SEED, marker=marker,
+                              pool=mp_pool)
+        res["wall_s"] = time.time() - t0
+        print("[fuzz] " + json.dumps(res), flush=True)
+        runs.append(res)
+        for e, c in res["errors"].items():
+            errs[e] = errs.get(e, 0) + c
+    pairs = sum(r["pairs"] for r in runs)
+    bad = sum(r["mismatches"] for r in runs)
+    by_route = {r: sum(x["pairs"] for x in runs if x["route"] == r)
+                for r in fuzz_talco.ROUTES}
+    print(f"[fuzz] {pairs} pairs ({json.dumps(by_route)}) in "
+          f"{sum(r['runs'] for r in runs)} runs, "
+          f"{sum(r['launches'] for r in runs)} launches; error codes "
+          f"{json.dumps(errs)}; mismatches {bad} (tolerance 0: paths "
+          "byte-equal, lengths and errors equal)", flush=True)
+    check(bad == 0, f"fuzz: {bad} runs differ from the oracle")
+    check(pairs >= 140, f"fuzz: {pairs} pairs, want 140")
+    check(errs.get("1", 0) > 0 and errs.get("2", 0) > 0,
+          "fuzz: errors 1 and 2 were not both exercised")
+    return {"pairs": pairs, "by_route": by_route, "errors": errs,
+            "runs": runs}
+
+
+def phase_bench(torch, smi_line, timing):
+    """The kernel bench (tools/bench_kernel.py --json) on every route: short
+    nt freq (batch 128, 1700 columns), nt leaf, protein freq (400), long nt
+    freq (30 kb, the batcher's launch) and wide nt freq (4750 columns,
+    widths 8192/16384). Each line printed with the card's name and power
+    limit, its us/diagonal beside PERF.md section 6's and, where the time
+    phase ran, beside its (a print, not a check: the shapes differ)."""
+    from twilight_tpu_torch.tools import bench_kernel
+    out = {}
+    for label, kw in BENCH_RUNS:
+        res = bench_kernel.bench(batch=128, iters=5, **kw)
+        out[label] = res
+        print(f"[bench] {label}: {json.dumps(res)}; card {smi_line}",
+              flush=True)
+        check(res["err_rate"] == 0 and res["value"] > 0,
+              f"bench/{label}: error rate {res['err_rate']}")
+    now = {}
+    if timing is not None:
+        now = {f"short {k}": v["us_per_diagonal"] for k, v in timing.items()}
+    print("[bench] us/diagonal, bench / PERF.md section 6 (review run, PR 4)"
+          " / this run's time phase: " + "; ".join(
+              f"{k} {v['us_per_diag']:.3f} / {PERF_US_PER_DIAG[k]:.3f} / "
+              + (f"{now[k]:.3f}" if k in now else "-")
+              for k, v in out.items()) + f"; card {smi_line}", flush=True)
+    return out
+
+
+def quality_start(td):
+    """Starts the quality harness (tools/quality_harness.py --json) at
+    sim2k's shape with --backend cuda and with --backend native, as two
+    processes side by side (NJ of 2000 rows on the host is most of each
+    run). Returns what phase_quality waits for."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for k in ("TWILIGHT_FORCE_DEVICE", "TWILIGHT_NO_STEAL"):
+        env.pop(k, None)
+    procs, files = {}, {}
+    for backend in ("cuda", "native"):
+        files[backend] = [os.path.join(td, f"quality_{backend}.{x}")
+                          for x in ("out", "log")]
+        with open(files[backend][0], "w") as out, \
+                open(files[backend][1], "w") as log:
+            procs[backend] = subprocess.Popen(
+                [sys.executable, "-m",
+                 "twilight_tpu_torch.tools.quality_harness", *QUALITY_ARGS,
+                 "--backend", backend, "--json", "-d",
+                 os.path.join(td, f"quality_{backend}")],
+                cwd=REPO, env=env, stdout=out, stderr=log)
+    return procs, files, time.time()
+
+
+def phase_quality(started):
+    """Waits for the two harness runs of quality_start and holds them: for
+    every strategy the two outputs must be md5-equal, so their SP scores
+    are; the card run must launch."""
+    procs, files, t0 = started
+    runs = {}
+    try:
+        for backend, proc in procs.items():
+            proc.wait(timeout=max(1.0, PROC_TIMEOUT_S - (time.time() - t0)))
+            out, log = files[backend]
+            check(proc.returncode == 0, f"quality/{backend}: exit code "
+                  f"{proc.returncode}:\n{_read(log)[-3000:]}")
+            runs[backend] = json.loads(_read(out).splitlines()[-1])
+            # its last line is the result: the file's time is the end's
+            runs[backend]["process_s"] = os.path.getmtime(out) - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for backend, res in runs.items():
+        print(f"[quality] --backend {backend}, {' '.join(QUALITY_ARGS)}: "
+              + json.dumps(res), flush=True)
+        for k, v in res["results"].items():
+            print(f"[quality]   {backend} {k:14s} SP/pair "
+                  f"{v['sp_per_pair']:.2f}, {v['pct_of_true_tree']:.2f}% of "
+                  f"true-tree, {v['wall_s']:.3f} s, {v['launches']} "
+                  f"launches, md5 {v['md5']}", flush=True)
+    cuda, nat = runs["cuda"], runs["native"]
+    check(cuda["backbone"]["md5"] == nat["backbone"]["md5"],
+          "quality: the backbone's md5 differs between cuda and native")
+    check(list(cuda["results"]) == list(nat["results"]),
+          "quality: the two runs have different strategies")
+    for k, v in nat["results"].items():
+        c = cuda["results"][k]
+        check(c["md5"] == v["md5"] and c["sp_per_pair"] == v["sp_per_pair"],
+              f"quality/{k}: cuda md5 {c['md5']} != native {v['md5']}")
+        check(v["launches"] == 0, f"quality/{k}: the native run launched")
+    launched = cuda["backbone"]["launches"] + sum(
+        v["launches"] for v in cuda["results"].values())
+    check(launched > 0, "quality: the cuda run made no launch")
+    print(f"[quality] every strategy md5-equal between cuda and native; the "
+          f"cuda run made {launched} launches; processes "
+          f"{cuda['process_s']:.3f} s and {nat['process_s']:.3f} s side by "
+          "side (beside the parity phases' host references in a whole "
+          "run)", flush=True)
+    return runs
+
+
+def phase_frontdoor(td):
+    """The front door: prot_16 with --backend native through `python -m
+    twilight_tpu_torch` as it runs, with torch refused, and with torch
+    imported first (what every run paid before; it times the import), in
+    turns (FRONTDOOR_REPS of each), each the golden md5; -h with torch
+    refused. Walls are whole processes, by the host clock."""
+    prot = os.path.join(REPO, "tests", "data", "prot_16")
+    argv = ["-t", prot + ".nwk", "-i", prot + ".fa", "--type", "p",
+            "--backend", "native", "--overwrite"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    variants = {"front door": ["-m", "twilight_tpu_torch"],
+                "torch refused": ["-c", NO_TORCH],
+                "torch imported first": ["-c", TORCH_FIRST]}
+
+    def child(args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *args], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=300)
+        return r, time.perf_counter() - t0
+
+    walls = {k: [] for k in variants}
+    imports = []
+    out = os.path.join(td, "frontdoor.aln")
+    for turn in range(FRONTDOOR_REPS):
+        order = list(variants) if turn % 2 == 0 else list(variants)[::-1]
+        for name in order:
+            r, wall = child(variants[name] + argv + ["-o", out])
+            check(r.returncode == 0, f"frontdoor/{name}: exit code "
+                  f"{r.returncode}: {r.stderr[-1000:]}")
+            check(_md5(out) == GOLDEN_PROT16,
+                  f"frontdoor/{name}: md5 {_md5(out)}")
+            if name == "torch refused":
+                check("TORCH_ATTEMPTS []" in r.stderr,
+                      "frontdoor: a host-only run tried to import torch")
+            if name == "torch imported first":
+                imports.append(float(re.search(
+                    r"^IMPORT_TORCH_S (\S+)$", r.stderr, re.M).group(1)))
+            walls[name].append(wall)
+    r, _ = child(["-c", NO_TORCH, "-h"])
+    check(r.returncode == 0 and "TORCH_ATTEMPTS []" in r.stderr,
+          f"frontdoor: -h with torch refused: {r.stderr[-500:]}")
+    res = {"import_torch_s": imports, "prot16_native_wall_s": walls,
+           "md5": GOLDEN_PROT16, "help_without_torch": True}
+    print("[frontdoor] " + json.dumps(res), flush=True)
+    return res
+
+
 PHASES = ("parity", "long_parity", "wide", "time", "long_time", "gate",
           "probes", "e2e", "long_e2e", "workflow", "products", "placement",
-          "multihost", "multidevice")
+          "multihost", "multidevice", "fuzz", "bench", "quality",
+          "frontdoor")
 
 
 def main(argv=None):
@@ -1520,39 +1595,59 @@ def main(argv=None):
           "the native host kernel (twilight_tpu_torch/native/talco.cpp) "
           "did not build")
 
+    def run(phase, fn, *args):
+        """The phase's result (None when it is not run), its wall
+        printed."""
+        if not want(phase):
+            return None
+        t0 = time.time()
+        res = fn(*args)
+        print(f"[timing] {phase} {time.time() - t0:.3f} s", flush=True)
+        return res
+
     workers = max(1, min(8, os.cpu_count() or 1))
-    if want("parity") or want("long_parity") or want("wide"):
-        with ProcessPoolExecutor(
-                max_workers=workers,
-                mp_context=multiprocessing.get_context("spawn")) as pool:
-            if want("parity"):
-                parity_err = phase_parity(torch, pool, workers)
-            if want("long_parity"):
-                long_err, long_cross = phase_long_parity(torch, pool,
-                                                         workers)
-                # rows past W_S live in the pair's scratch, below it in
-                # shared memory
-                check(long_cross >= 10, f"parity: {long_cross} long pairs "
-                      "whose band crosses W_S provably (want 10)")
-            if want("wide"):
-                wide_err, wide, wide_cross = phase_wide_parity(torch, pool,
-                                                               workers)
-    timing = phase_time(torch) if want("time") else None
-    long_time = phase_long_time(torch) if want("long_time") else None
-    gate = phase_gate(torch) if want("gate") else None
-    if want("probes"):
-        probes, probe_launches = phase_probes(torch)
     with tempfile.TemporaryDirectory() as td:
-        runs = phase_e2e(torch, td) if want("e2e") else None
-        long_runs = phase_long_e2e(torch, td) if want("long_e2e") else None
-        wf = phase_workflow(torch, td) if want("workflow") else None
+        started = None
+        if any(want(p) for p in ("parity", "long_parity", "wide", "fuzz")):
+            with ProcessPoolExecutor(
+                    max_workers=workers,
+                    mp_context=multiprocessing.get_context("spawn")) as pool:
+                if want("wide"):
+                    wide_err, wide, wide_cross = run(
+                        "wide", phase_wide_parity, torch, pool, workers)
+                # the quality harness's processes run beside the host
+                # references of the phases below, which time nothing
+                if want("quality"):
+                    started = quality_start(td)
+                parity_err = run("parity", phase_parity, torch, pool,
+                                 workers)
+                if want("long_parity"):
+                    long_err, long_cross = run(
+                        "long_parity", phase_long_parity, torch, pool,
+                        workers)
+                    # rows past W_S live in the pair's scratch, below it
+                    # in shared memory
+                    check(long_cross >= 10, f"parity: {long_cross} long "
+                          "pairs whose band crosses W_S provably (want 10)")
+                fuzz = run("fuzz", phase_fuzz, torch, pool, workers)
+        if want("quality"):
+            quality = run("quality", phase_quality,
+                          started or quality_start(td))
+        timing = run("time", phase_time, torch)
+        long_time = run("long_time", phase_long_time, torch)
+        gate = run("gate", phase_gate, torch)
+        if want("probes"):
+            probes, probe_launches = run("probes", phase_probes, torch)
+        bench = run("bench", phase_bench, torch, smi_line, timing)
+        runs = run("e2e", phase_e2e, torch, td)
+        long_runs = run("long_e2e", phase_long_e2e, torch, td)
+        wf = run("workflow", phase_workflow, torch, td)
         if want("products"):
-            products, product_rt = phase_products(torch, wf)
-        place = phase_placement(torch, td) if want("placement") else None
-        multihost = phase_multihost(torch, td) if want("multihost") \
-            else None
-        multidevice = phase_multidevice(torch, td) \
-            if want("multidevice") else None
+            products, product_rt = run("products", phase_products, torch, wf)
+        place = run("placement", phase_placement, torch, td)
+        multihost = run("multihost", phase_multihost, torch, td)
+        multidevice = run("multidevice", phase_multidevice, torch, td)
+        frontdoor = run("frontdoor", phase_frontdoor, td)
     ok = json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": count}})
     if only is not None:
@@ -1621,12 +1716,30 @@ def main(argv=None):
           f"{multihost['both_s']:.3f} s (walls "
           f"{[round(h['wall_s'], 3) for h in multihost['hosts']]} s, "
           f"launches {[h['launches'] for h in multihost['hosts']]}, "
-          f"subtrees {[h['subtrees'] for h in multihost['hosts']]}) against "
-          f"one native process {multihost['native_s']:.3f} s; card "
+          f"subtrees {[h['subtrees'] for h in multihost['hosts']]}); card "
           f"{smi_line}", flush=True)
     print(f"[summary] multidevice sim2k forced: one queue "
           f"{multidevice['walls']['one']} s, two queues on cuda:0 "
           f"{multidevice['walls']['two']} s; card {smi_line}", flush=True)
+    print(f"[summary] fuzz, seed {FUZZ_SEED}: {fuzz['pairs']} pairs "
+          f"{json.dumps(fuzz['by_route'])}, error codes "
+          f"{json.dumps(fuzz['errors'])}, none differs from the oracle; card "
+          f"{smi_line}", flush=True)
+    print("[summary] bench, pairs/s with copies (ms/pair resident, bound "
+          "share): " + "; ".join(
+              f"{k} {v['value']:.1f} ({v['ms_per_pair_resident']:.4f}, "
+              f"{v['bound_share']:.4f})" for k, v in bench.items())
+          + f"; card {smi_line}", flush=True)
+    print(f"[summary] quality {' '.join(QUALITY_ARGS)}, SP/pair (% of "
+          "true-tree), cuda md5-equal to native: " + ", ".join(
+              f"{k} {v['sp_per_pair']:.2f} ({v['pct_of_true_tree']:.2f})"
+              for k, v in quality["cuda"]["results"].items())
+          + f"; card {smi_line}", flush=True)
+    print(f"[summary] frontdoor: import torch "
+          f"{json.dumps(frontdoor['import_torch_s'])} s; prot_16 --backend "
+          "native process walls: " + json.dumps(
+              frontdoor["prot16_native_wall_s"])
+          + f"; card {smi_line}", flush=True)
 
     def talco(name, res, launches, err, plain_ms, replaces):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -1647,11 +1760,12 @@ def main(argv=None):
         talco("talco_xdrop (K5: wide route, ladder width above 4096)", wide,
               long_runs["w20_cuda"]["wide_launches"], wide_err,
               wide["plain_ms_per_pair"], REPLACES_WIDE)]
+    from twilight_tpu_torch.tools import talco_inputs as ti
     for fn, kid, replaces, main_variant, ops in PROBES:
         vs = {n: r for n, r in probes.items()
               if n.split("/")[0].split("+")[0] == fn}
         r = probes[main_variant]
-        b_ms, b_by = bound_ms(ops, 0)
+        b_ms, b_by = ti.bound_ms(ops, 0)
         kernels.append({
             "name": f"probe_loop {fn} ({kid}; ms of {main_variant})",
             "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,

@@ -2,7 +2,8 @@
 the CPU-tensor batcher reproduces the prot_16 golden and the JAX package's
 output on a simulated set, never imports jax, --backend cuda without a
 card fails loudly, and the default backend (auto) takes the card whenever
-there is one and exits without one."""
+there is one and exits without one. The front door: a host-only run, -h
+and --version import no torch."""
 import hashlib
 import os
 import subprocess
@@ -13,6 +14,7 @@ import torch
 
 from twilight_tpu import cli as tpu_cli
 from twilight_tpu_torch import cli
+from twilight_tpu_torch.tools import simulate
 
 from conftest import DATA, GOLDEN, REPO
 
@@ -194,3 +196,81 @@ def test_backend_auto_without_card_exits(monkeypatch, tmp_path, capfd):
         rc, kernel = cli.run(prot + host_only + ["-o", str(out)])
         assert rc == 0 and kernel is None
         assert _md5(out) == PROT16_MD5
+
+
+# A fresh interpreter in which importing torch raises (a meta-path finder
+# refuses it and records each attempt) runs the port's command line as
+# `python -m twilight_tpu_torch` does, with the arguments after the code.
+_NO_TORCH = r"""
+import atexit, importlib.abc, runpy, sys
+attempts = []
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] == "torch":
+            attempts.append(name)
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+atexit.register(lambda: print("TORCH_ATTEMPTS", attempts, file=sys.stderr))
+sys.argv = ["twilight_tpu_torch"] + sys.argv[1:]
+runpy.run_module("twilight_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _no_torch(argv):
+    return subprocess.run([sys.executable, "-c", _NO_TORCH] + argv,
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+
+
+@pytest.mark.parametrize("host_only", [
+    ["--backend", "native"], ["--backend", "numpy"], ["--cpu-only"],
+    ["--devices", "0"]])
+def test_host_only_run_imports_no_torch(tmp_path, host_only):
+    out = tmp_path / "p16.aln"
+    r = _no_torch(["-t", f"{DATA}/prot_16.nwk", "-i", f"{DATA}/prot_16.fa",
+                   "--type", "p", "-o", str(out)] + host_only)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "TORCH_ATTEMPTS []" in r.stderr
+    assert _md5(out) == PROT16_MD5
+
+
+@pytest.mark.parametrize("flag", ["-h", "--version"])
+def test_help_and_version_import_no_torch(flag):
+    r = _no_torch([flag])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "twilight-tpu-torch" in r.stdout
+    assert "TORCH_ATTEMPTS []" in r.stderr
+
+
+def test_backend_cuda_without_torch_fails(tmp_path):
+    """The card's backend needs torch: refused, the run exits non-zero
+    and writes nothing."""
+    out = tmp_path / "x.aln"
+    r = _no_torch(["--backend", "cuda", "-t", f"{DATA}/prot_16.nwk", "-i",
+                   f"{DATA}/prot_16.fa", "-o", str(out)])
+    assert r.returncode != 0
+    assert "refused: torch" in r.stderr
+    assert not os.path.exists(out)
+
+
+def test_two_hosts_import_no_torch(tmp_path):
+    """Two hosts over one shared temp dir with the host kernel, torch
+    refused in both: host 1 writes no output, host 0 the one-process
+    run's bytes (the 64 x 200 seed-7 set, -m 16)."""
+    prefix = str(tmp_path / "s64")
+    assert simulate.main(["-n", "64", "-l", "200", "--seed", "7", "-o",
+                          prefix]) == 0
+    base = ["-t", prefix + ".nwk", "-i", prefix + ".fa", "-m", "16", "-d",
+            str(tmp_path / "shared"), "-k", "--backend", "native",
+            "--hosts", "2"]
+    outs = [tmp_path / f"h{h}.aln" for h in (0, 1)]
+    for host in (1, 0):
+        r = _no_torch(base + ["--host-id", str(host), "-o",
+                              str(outs[host])])
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert "TORCH_ATTEMPTS []" in r.stderr
+    assert not os.path.exists(outs[1])
+    assert _md5(outs[0]) == "fb1205241554f22b5f42ec4947793347"

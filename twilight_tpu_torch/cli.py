@@ -8,6 +8,11 @@ CPU tensors, `native` and `numpy` run the host kernels, and `auto` (the
 default) is `cuda` whenever a GPU is present and an error without one.
 Under `cuda` the level gate (pipeline/aligner.py) still sends each level
 to the host kernel or the card.
+
+A host-only run (`--backend native|numpy`, `--devices 0`, `--cpu-only`,
+also across hosts with `--hosts/--host-id`), `-h` and `--version` import
+no torch: the modules that need it are imported in the branches that use
+them.
 """
 from __future__ import annotations
 
@@ -16,16 +21,14 @@ import os
 import sys
 import time
 
-import torch
-
 from .config import (INT32_MAX, PLACE_WO_TREE, Options, Params,
                      detect_mode, detect_type)
-from .ops.device_kernel import make_device_kernel
 from .parallel.distributed import (detect_topology, detect_topology_implicit,
                                    distributed_live)
 from .pipeline import modes
 
 BACKENDS = ("auto", "cuda", "cpu", "native", "numpy")
+HOST_BACKENDS = ("native", "numpy")
 _TAG = "[twilight-tpu-torch]"
 
 
@@ -269,6 +272,13 @@ def options_from_args(args) -> Options:
     return opt
 
 
+def make_device_kernel(option: Options, param: Params):
+    """The DP batcher of the resolved backend (ops/device_kernel.py, which
+    imports torch)."""
+    from .ops import device_kernel
+    return device_kernel.make_device_kernel(option, param)
+
+
 def resolve_backend(backend: str) -> str:
     """Resolve --backend auto: the card whenever there is one (the level
     gate then sends each level to the host or the card, as under
@@ -276,6 +286,7 @@ def resolve_backend(backend: str) -> str:
     (RuntimeError). Any other choice stands as given."""
     if backend != "auto":
         return backend
+    import torch
     if torch.cuda.is_available():
         print(f"{_TAG} auto backend: cuda "
               f"({torch.cuda.get_device_name(0)})", file=sys.stderr)
@@ -323,7 +334,8 @@ def run(argv=None):
         dump_params(param, opt.type, args.blosum,
                     user_matrix=bool(args.matrix))
     kernel = None
-    if opt.device_num != 0:    # --devices 0 / --cpu-only: host only
+    # --devices 0 / --cpu-only and the host kernels: host only, no torch
+    if opt.device_num != 0 and opt.device_backend not in HOST_BACKENDS:
         try:
             # raises without a card (auto, cuda), or for a failed build
             opt.device_backend = resolve_backend(opt.device_backend)

@@ -20,17 +20,20 @@ the group's world size and rank.
 The exchanged payload is host bytes, so it always rides gloo: NCCL needs
 CUDA tensors, and two ranks on one GPU cannot share an NCCL communicator.
 A failure of a live group raises; no host carries on as if it ran alone.
+
+torch is imported by the functions that use a group. A process that never
+imported torch has no group, so a host-only run over the shared temp dir
+imports none (the command line's front door).
 """
 from __future__ import annotations
 
 import io
 import os
+import sys
 import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
-import torch
-import torch.distributed as dist
 
 # gloo groups made for a default group of another backend, by that group
 _gloo_groups: dict = {}
@@ -79,6 +82,9 @@ def detect_topology_implicit() -> Tuple[int, int]:
     """(n_hosts, host_id) from an already-initialized torch.distributed
     default group; (1, 0) otherwise. Never creates a group: the caller
     initializes one (init_process_group) when it runs several hosts."""
+    if "torch" not in sys.modules:
+        return 1, 0
+    import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         return 1, 0
     return dist.get_world_size(), dist.get_rank()
@@ -94,6 +100,7 @@ def _gloo_group():
     """The group the exchange runs on: the default group when it is gloo,
     else a gloo group over the same ranks, made once (collective: every
     rank reaches this point in the same order)."""
+    import torch.distributed as dist
     if dist.get_backend() == "gloo":
         return None
     world = dist.group.WORLD
@@ -118,6 +125,8 @@ def exchange_subtree_states_collective(local: dict) -> dict:
     as the barrier that guarantees every host's subalignment files are
     fully written (each host writes them before reaching this point).
     """
+    import torch
+    import torch.distributed as dist
     group = _gloo_group()
     world = dist.get_world_size()
     buf = io.BytesIO()
@@ -153,6 +162,7 @@ def exchange_subtree_states(option, subtree_ids: Sequence[int],
     group is live, every host first meets at a gloo barrier, so that no
     host races ahead of the slowest writer (a failed barrier raises)."""
     if distributed_live():
+        import torch.distributed as dist
         dist.barrier(group=_gloo_group())
     deadline = time.time() + timeout_s
     missing = list(subtree_ids)

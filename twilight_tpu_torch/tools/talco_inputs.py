@@ -1,11 +1,14 @@
-"""Synthetic TALCO-XDrop inputs and timers for the kernel's measurements.
+"""Synthetic TALCO-XDrop inputs, checks and timers for the kernel.
 
-Shared by `chip_smoke.py` and the measurement tools (`talco_ab`,
-`talco_profile`): seeded profile pairs shaped like what the pipeline hands
-the batcher, the batcher's packers, a CUDA-event timer and the launch
-round trip behind the level gate. The package's modules are imported
-inside the functions, so that a caller may put another checkout's package
-first on sys.path and measure it on the same inputs.
+Shared by `chip_smoke.py` and the tools (`fuzz_talco`, `bench_kernel`,
+`talco_ab`, `talco_profile`): seeded profile pairs shaped like what the
+pipeline hands the batcher, the batcher's packers, one launch on the card
+or on the CPU, the host references a launch is held to (the NumPy oracle,
+the native host kernel, the plain version) and the comparison, a
+CUDA-event timer, the launch round trip behind the level gate, and the
+kernel's bound on the H100. The package's modules are imported inside the
+functions, so that a caller may put another checkout's package first on
+sys.path and measure it on the same inputs.
 """
 from __future__ import annotations
 
@@ -16,6 +19,16 @@ import numpy as np
 GO, GE = -50.0, -5.0          # the CLI's default gap scores
 WIDE_XDROP = 60000            # bands of 4300-5200-column pairs past 4096
 GATE_PAIRS, GATE_COLS, GATE_REPS = 8, 100, 50   # the launch round trip
+# f32 operations per DP cell of talco_xdrop.cu: similarity<P> (P = 6: 5
+# rows of 10 mul + 5 add, 2 x 5 gap terms of 2 mul + 1 add, 1 div = 106;
+# P = 22: 21 rows of 16 + 24 + 15 + 7 + 1, 2 x 21 gap terms of 3, 1 div =
+# 1450; leaf: a matrix entry + 0.0f = 1) plus the recurrence (5 adds: the
+# match and 4 gap terms; 6 compares: 2 gap pointers, 2 for the best
+# state, the X-drop cut, the live test; 4 selects; the max = 16)
+OPS_PER_CELL = {"nt freq": 122, "nt leaf": 17, "protein freq": 1466,
+                "protein leaf": 17}
+F32_PEAK = 67e12               # H100 SXM f32 outside the tensor cores
+HBM_PEAK = 3.35e12             # H100 SXM device memory, bytes/s
 
 
 def _letters(p):
@@ -94,6 +107,17 @@ def make_pair(rng, p, leaf, length, related=True, gap_rate=0.05,
             (rl, ql, kr, kq))
 
 
+def long_pair(rng, p, leaf, lo, hi, related=True):
+    """A pair (make_pair) of about lo-hi columns, log-uniform, whose
+    longer side is above the 2048 bucket."""
+    while True:
+        length = int(np.exp(rng.uniform(np.log(lo), np.log(hi))))
+        prep, meta = make_pair(rng, p, leaf, length, related=related,
+                               cap=hi)
+        if max(prep[4]) > 2048:
+            return prep, meta
+
+
 def pack(chunk, prepared, metas, task, p, leaf, param, flen, xdrop, marker,
          pin=False, padlen=2048):
     """The batcher's packed launch of the pairs `chunk` (the freq or the
@@ -104,6 +128,174 @@ def pack(chunk, prepared, metas, task, p, leaf, param, flen, xdrop, marker,
                                   flen, xdrop, marker=marker, pin=pin)
     return dk.pack_batch(chunk, prepared, metas, task, padlen, p, param,
                          flen, xdrop, marker=marker, pin=pin)
+
+
+def _matrix(torch, p, device):
+    from twilight_tpu_torch.config import Params
+    return torch.from_numpy(Params.make("n" if p == 6 else "p")
+                            .scoring_matrix.astype(np.float32)).to(device)
+
+
+def launch(torch, st, p, marker=1024, device="cuda"):
+    """One launch of a packed batch: (paths, tail) as numpy. On "cuda"
+    the kernel runs on copies of the inputs (synchronised); on "cpu" the
+    wrapper runs its plain version on the staging tensors themselves."""
+    from twilight_tpu_torch.ops import talco_cuda
+    views = st.views(st.buf.to(device))
+    paths, tail = talco_cuda.talco_align(
+        views[1], views[2], views[0], views[3], views[4],
+        _matrix(torch, p, device), p=p, marker=marker,
+        scratch_bytes=int(st.offs[-1]))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return paths.cpu().numpy(), tail.cpu().numpy()
+
+
+def launch_times(torch, st, p, b, padlen, reps):
+    """(production ms, resident ms, host paths, host tail) of one batch
+    on the card: production is H2D + kernel + D2H as the batcher issues
+    them, resident the kernel alone on inputs already on the card."""
+    from twilight_tpu_torch.ops import talco_cuda
+    from twilight_tpu_torch.ops.device_kernel import out_views
+    mat = _matrix(torch, p, "cuda")
+    scratch = int(st.offs[-1])
+    nbytes = b * 2 * padlen + b * 16
+    host_out = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    obuf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+
+    def production():
+        dev = st.views(st.buf.to("cuda", non_blocking=True))
+        talco_cuda.talco_align(
+            dev[1], dev[2], dev[0], dev[3], dev[4], mat, p=p,
+            scratch_bytes=scratch, out=out_views(obuf, b, padlen))
+        host_out.copy_(obuf, non_blocking=True)
+
+    resident = st.views(st.buf.to("cuda"))
+
+    def kernel_only():
+        talco_cuda.talco_align(
+            resident[1], resident[2], resident[0], resident[3],
+            resident[4], mat, p=p, scratch_bytes=scratch,
+            out=out_views(obuf, b, padlen))
+
+    prod = timed(torch, production, reps)
+    res = timed(torch, kernel_only, reps)
+    production()
+    torch.cuda.synchronize()
+    paths, tail = out_views(host_out, b, padlen)
+    return prod, res, paths.numpy().copy(), tail.numpy().copy()
+
+
+def host_check(job):
+    """Host reference of one launched pair (runs in a worker): the NumPy
+    oracle, or the native host kernel when job["native"]; and the plain
+    version on CPU tensors at the launch's padlen unless job["plain"] is
+    false. Returns (path, error, plain path or None, plain tail or None)."""
+    from twilight_tpu_torch.config import Params
+    from twilight_tpu_torch.constants import letter_lut
+    from twilight_tpu_torch.ops import talco_host, talco_np
+    p, leaf, marker, task = job["p"], job["leaf"], job["marker"], job["task"]
+    prep, meta = job["prep"], job["meta"]
+    param = Params.make("n" if p == 6 else "p")
+    rl, ql = prep[4]
+    if leaf:
+        lut = letter_lut("n" if p == 6 else "p")
+        fr = np.zeros((rl, p), np.float32)
+        fq = np.zeros((ql, p), np.float32)
+        fr[np.arange(rl), lut[prep[2][0]]] = 1.0
+        fq[np.arange(ql), lut[prep[2][1]]] = 1.0
+        go = (np.full(rl, GO, np.float32), np.full(ql, GO, np.float32))
+        ge = (np.full(rl, GE, np.float32), np.full(ql, GE, np.float32))
+        gap_char = GE
+    else:
+        fr, fq, _, _, _, go, ge = prep
+        gap_char = 0.0 if task in (1, 2) else GE
+    tp = talco_np.TalcoRunParams(
+        param.scoring_matrix, GO, GE, gap_char, job["xdrop"],
+        flen=job["flen"], marker=marker)
+    engine = (talco_host.align_freq if job.get("native")
+              else talco_np.align_freq)
+    gold, gerr = engine(tp, fr, fq, go, ge, (meta[2], meta[3]))
+    if not job.get("plain", True):
+        return gold, int(gerr), None, None
+    import torch
+    torch.set_num_threads(1)
+    st = pack([0], [prep], [meta], task, p, leaf, param, [job["flen"]],
+              [job["xdrop"]], marker, padlen=job.get("padlen", 2048))
+    paths, tail = launch(torch, st, p, marker, "cpu")
+    n = int(tail[0, 0])
+    return gold, int(gerr), paths[0, :n].copy(), tail[0]
+
+
+def host_refs(pool, jobs):
+    """host_check over the jobs, on the process pool (None: in this
+    process): the plain-version ones (slowest) first, each kind the
+    largest first, so that no long job starts last."""
+    def cost(j):
+        rl, ql = jobs[j]["prep"][4]
+        return not jobs[j]["plain"], -rl * ql
+    order = sorted(range(len(jobs)), key=cost)
+    todo = [jobs[j] for j in order]
+    done = (map(host_check, todo) if pool is None
+            else pool.map(host_check, todo, chunksize=1))
+    out = [None] * len(jobs)
+    for j, r in zip(order, done):
+        out[j] = r
+    return out
+
+
+def hold(kern, refs, label):
+    """Holds each kernel result (path, tail, key) to its host reference:
+    the error code and the path, and, where the plain version ran, the
+    whole tail and the path. Prints each mismatch with its key. Returns
+    (mismatches, max |kernel - ref|, error counts, pairs held to the plain
+    version)."""
+    bad, max_err, errs, nplain = 0, 0, {}, 0
+
+    def diff(a, b):
+        if len(a) != len(b):
+            return 2
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return int(d.max()) if d.size else 0
+
+    for (kp, kt, key), (gold, gerr, pp, pt) in zip(kern, refs):
+        e = int(kt[1])
+        errs[e] = errs.get(e, 0) + 1
+        ok = e == gerr and (e != 0 or np.array_equal(kp, gold))
+        if e == 0 and gerr == 0:
+            max_err = max(max_err, diff(kp, gold))
+        if pt is not None:
+            nplain += 1
+            ok = ok and np.array_equal(kt, pt) and (
+                e != 0 or np.array_equal(kp, pp))
+            max_err = max(max_err, diff(kp, pp), int(np.abs(
+                kt.astype(np.int64) - pt.astype(np.int64)).max()))
+        if not ok:
+            bad += 1
+            print(f"[{label}] MISMATCH {key}: kernel tail {kt.tolist()}, "
+                  f"host err {gerr} len {len(gold)}, plain tail "
+                  f"{None if pt is None else pt.tolist()}", flush=True)
+    return bad, max_err, errs, nplain
+
+
+def bound_ms(ops, nbytes):
+    """(least ms the H100 could take, what bounds it): the larger of the
+    f32 operations over the f32 peak and the bytes over the memory rate
+    (each input read once, each output written once)."""
+    t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_PEAK
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def talco_bound(res, name, b, padlen):
+    """Adds the per-pair bound and roofline share of one timed launch to
+    its result: dp_cells x OPS_PER_CELL[name] operations, the staging
+    buffer in and paths + tails out."""
+    ops = res["dp_cells"] * OPS_PER_CELL[name] / b
+    nbytes = (res["h2d_bytes"] + b * 2 * padlen + b * 16) / b
+    res["bound_ms_per_pair"], res["bound_by"] = bound_ms(ops, nbytes)
+    res["roofline_share"] = (res["bound_ms_per_pair"]
+                             / res["ms_per_pair_resident"])
 
 
 def timed(torch, fn, reps):
