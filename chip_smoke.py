@@ -120,7 +120,24 @@ Phases (each prints its own lines; any failure exits non-zero):
 20. front door (`frontdoor`): prot_16 with --backend native through
    `python -m twilight_tpu_torch` as it runs, with torch refused and with
    torch imported first (timing the import), in turns, each its golden
-   md5; -h with torch refused.
+   md5; -h with torch refused;
+21. SASS census (`census`, right after the build; tools/sass_census.py):
+   the instruction mix by class of the 4 TALCO instances and the 9 probe
+   variants from cuobjdump -sass of the built libraries; every instance
+   must be there, and one whose cudaFuncGetAttributes local size is 0
+   must show no LDL/STL; each TALCO instance's FFMA count is printed
+   with its source (not a check);
+22. graft entry (`entry`; graft_entry.py): entry() on cuda:0, one launch
+   of the TALCO step, held to the plain version on the same CUDA tensors
+   and to the oracle, its resident time printed; then the sharded kernel
+   (parallel/sharding.py) over [cuda:0, cuda:0] on 8 pairs, one launch a
+   shard, held to the oracle;
+23. dry run (`dryrun`; graft_entry.dryrun_multichip(2)): the production
+   batcher over two distinct cards when the machine has them, else over
+   [cuda:0, cuda:0], host stealing off, through the short freq, leaf,
+   long and wide (ladder) routes, every pair byte-equal to the oracle
+   (computed on the host pool while the card runs), every queue
+   launching; the batcher's stats line printed.
 
 `--only a,b,...` runs some phases (build always runs; products needs
 workflow) and prints no kernels line. Each phase's wall is printed
@@ -1343,6 +1360,141 @@ def phase_multidevice(torch, td):
 
 
 # ---------------------------------------------------------------------------
+# the last modules: SASS census, graft entry, sharding, dry run
+# ---------------------------------------------------------------------------
+
+def phase_census(attributes):
+    """The instruction mix of every kernel instance (tools/sass_census.py
+    on the built libraries). Held: all 13 instances are there, and none
+    whose cudaFuncGetAttributes local size is 0 has LDL/STL. Each TALCO
+    instance's FFMA count is printed with its source, not checked: under
+    -fmad=false the correctly rounded division's own fma remains."""
+    from twilight_tpu_torch.ops import probe_loop
+    from twilight_tpu_torch.tools import sass_census
+    res = sass_census.census(sass_census.listing())
+    missing = [i for i in sass_census.EXPECTED if i not in res]
+    check(not missing, f"census: no SASS for {missing}")
+    for inst in sass_census.EXPECTED:
+        r = res[inst]
+        r["local_bytes"] = (attributes[inst]["local_bytes"]
+                            if inst.startswith("talco") else
+                            probe_loop.attributes(r["variant"])
+                            ["local_bytes"])
+        print(f"[census] {inst}: " + json.dumps(r), flush=True)
+        check(r["local_bytes"] > 0 or r["ldl"] + r["stl"] == 0,
+              f"census: {inst} has {r['ldl']} LDL and {r['stl']} STL, but "
+              "cudaFuncGetAttributes reports no local bytes")
+    print("[census]\n" + sass_census.table(
+        {i: res[i] for i in sass_census.EXPECTED}), flush=True)
+    for inst in sass_census.EXPECTED[:4]:
+        r = res[inst]
+        print(f"[census] {inst}: FFMA {r['ffma']} ({r['ffma_source']}); "
+              f"LDL/STL {r['ldl']}/{r['stl']} against "
+              f"{r['local_bytes']} local bytes", flush=True)
+    return res
+
+
+def _hold_oracle(paths, tail, pairs, flen, label):
+    """Each (prep, meta) pair's kernel path against the oracle at ladder
+    width `flen`, task 0; returns the pairs held."""
+    from twilight_tpu_torch.graft_entry import oracle_ladder
+    for i, (prep, meta) in enumerate(pairs):
+        gold = oracle_ladder(prep, meta, 0, flen)
+        n = int(tail[i, 0])
+        check(gold is not None and int(tail[i, 1]) == 0 and n == len(gold)
+              and (paths[i, :n] == gold).all(),
+              f"{label}: pair {i} differs from the oracle (tail "
+              f"{tail[i].tolist()}, oracle "
+              f"{None if gold is None else len(gold)} steps)")
+    return len(pairs)
+
+
+def phase_entry(torch, smi_line):
+    """entry() on cuda:0: one launch of the TALCO step, held byte for byte
+    to the plain version on the same CUDA tensors and to the oracle, its
+    resident time (CUDA events, the launch alone) printed; then
+    get_sharded_batch_kernel over [cuda:0, cuda:0] (a stream a shard) on 8
+    pairs, one launch a shard, held to the oracle."""
+    from twilight_tpu_torch import graft_entry
+    from twilight_tpu_torch.ops import talco_cuda
+    from twilight_tpu_torch.parallel import sharding
+    from twilight_tpu_torch.tools import talco_inputs as ti
+    step, args = graft_entry.entry()
+    check(all(t.is_cuda for t in args) and step.matrix.is_cuda,
+          "entry: entry() did not put the step on the card")
+    n0 = talco_cuda.talco_align.launches
+    paths, tail = step(*args)
+    torch.cuda.synchronize()
+    launched = talco_cuda.talco_align.launches - n0
+    check(launched == 1, f"entry: the step made {launched} launches")
+    ints, floats, offs, ref, qry = args
+    plain = talco_cuda.talco_align_reference(
+        ints, floats, ref, qry, step.matrix, p=step.p, marker=step.marker)
+    same = torch.equal(paths, plain[0]) and torch.equal(tail, plain[1])
+    err = int((paths.int() - plain[0].int()).abs().max())
+    paths, tail = paths.cpu().numpy(), tail.cpu().numpy()
+    pairs = graft_entry._example_pairs(graft_entry.BATCH,
+                                       graft_entry.PADLEN)
+    held = _hold_oracle(paths, tail, pairs, graft_entry.FLEN, "entry")
+    check(same, "entry: the step differs from its plain version on the "
+          "same CUDA tensors")
+    scratch = int(offs[-1])
+    ms = ti.timed(torch, lambda: talco_cuda.talco_align(
+        ints, floats, offs, ref, qry, step.matrix, p=step.p,
+        marker=step.marker, scratch_bytes=scratch), 20)
+    print(f"[entry] TalcoStep on cuda:0: one launch, {held} pairs x "
+          f"{tail[0, 0]} steps, lengths {tail[:, 0].tolist()}, errors "
+          f"{tail[:, 1].tolist()}; byte-equal to the plain version (max "
+          f"|diff| {err}) and the oracle; resident {ms:.4f} ms a launch "
+          f"(CUDA events, mean of 20); card {smi_line}", flush=True)
+    # the sharded kernel over two queues on one card
+    pairs8 = graft_entry._example_pairs(8, graft_entry.PADLEN, seed=1)
+    batch = graft_entry._example_batch(8, seed=1)
+    mesh = sharding.make_pair_mesh(["cuda:0", "cuda:0"])
+    kern = sharding.get_sharded_batch_kernel(
+        6, graft_entry.MARKER, graft_entry._nuc_matrix(), mesh)
+    n0 = talco_cuda.talco_align.launches
+    spaths, stail = kern(*(t.cuda() for t in batch))
+    shard_launches = talco_cuda.talco_align.launches - n0
+    check(shard_launches == len(mesh),
+          f"entry: the sharded kernel made {shard_launches} launches over "
+          f"{len(mesh)} shards")
+    sheld = _hold_oracle(spaths.cpu().numpy(), stail.cpu().numpy(), pairs8,
+                         graft_entry.FLEN, "entry/sharded")
+    print(f"[entry] sharded over {[str(d) for d in mesh]}: {sheld} pairs in "
+          f"{shard_launches} launches (a stream a shard), byte-equal to the "
+          f"oracle; card {smi_line}", flush=True)
+    return {"launches": launched, "resident_ms": ms, "max_abs_err": err,
+            "sharded_pairs": sheld, "sharded_launches": shard_launches}
+
+
+def phase_dryrun(torch, mp_pool):
+    """graft_entry.dryrun_multichip(2): over two distinct cards when the
+    machine has them, else two queues on cuda:0. The dry run itself holds
+    every pair to the oracle (on the host pool) and every route and queue;
+    here the card must have made the launches."""
+    from twilight_tpu_torch import graft_entry
+    two = torch.cuda.device_count() >= 2
+    devices = None if two else ["cuda:0", "cuda:0"]
+    where = ("two cards (cuda:0, cuda:1)" if two
+             else "two queues on cuda:0 (the machine has one card)")
+    res = graft_entry.dryrun_multichip(2, devices, pool=mp_pool)
+    st = res["stats"]
+    check(st["launches"] == sum(st["launches_by_device"]) > 0,
+          f"dryrun: {st['launches']} card launches of "
+          f"{st['launches_by_device']}")
+    print(f"[dryrun] dryrun_multichip(2) over {where}: pairs "
+          f"{json.dumps(res['pairs'])}, every one byte-equal to the oracle; "
+          f"host_stolen {st['host_stolen']}, launches by queue "
+          f"{st['launches_by_device']}, leaf {st['leaf_launches']}, long "
+          f"{st['long_launches']}, wide {st['wide_launches']}, ladder "
+          f"relaunches {st['ladder_relaunches']}", flush=True)
+    print(f"[dryrun] {res['summary']}", flush=True)
+    res["where"] = where
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the port's tools and its front door
 # ---------------------------------------------------------------------------
 
@@ -1531,7 +1683,7 @@ def phase_frontdoor(td):
 PHASES = ("parity", "long_parity", "wide", "time", "long_time", "gate",
           "probes", "e2e", "long_e2e", "workflow", "products", "placement",
           "multihost", "multidevice", "fuzz", "bench", "quality",
-          "frontdoor")
+          "frontdoor", "census", "entry", "dryrun")
 
 
 def main(argv=None):
@@ -1605,13 +1757,16 @@ def main(argv=None):
         print(f"[timing] {phase} {time.time() - t0:.3f} s", flush=True)
         return res
 
+    census = run("census", phase_census, attributes)
     workers = max(1, min(8, os.cpu_count() or 1))
     with tempfile.TemporaryDirectory() as td:
-        started = None
-        if any(want(p) for p in ("parity", "long_parity", "wide", "fuzz")):
+        started = dryrun = None
+        if any(want(p) for p in ("parity", "long_parity", "wide", "fuzz",
+                                 "dryrun")):
             with ProcessPoolExecutor(
                     max_workers=workers,
                     mp_context=multiprocessing.get_context("spawn")) as pool:
+                dryrun = run("dryrun", phase_dryrun, torch, pool)
                 if want("wide"):
                     wide_err, wide, wide_cross = run(
                         "wide", phase_wide_parity, torch, pool, workers)
@@ -1636,6 +1791,7 @@ def main(argv=None):
         timing = run("time", phase_time, torch)
         long_time = run("long_time", phase_long_time, torch)
         gate = run("gate", phase_gate, torch)
+        entry = run("entry", phase_entry, torch, smi_line)
         if want("probes"):
             probes, probe_launches = run("probes", phase_probes, torch)
         bench = run("bench", phase_bench, torch, smi_line, timing)
@@ -1740,6 +1896,17 @@ def main(argv=None):
           "native process walls: " + json.dumps(
               frontdoor["prot16_native_wall_s"])
           + f"; card {smi_line}", flush=True)
+    print("[summary] census (instructions, FFMA, LDL/STL, local bytes): "
+          + "; ".join(f"{i} {census[i]['total']}, {census[i]['ffma']}, "
+                      f"{census[i]['ldl']}/{census[i]['stl']}, "
+                      f"{census[i]['local_bytes']}" for i in census
+                      if i.startswith("talco")) + f"; card {smi_line}",
+          flush=True)
+    print(f"[summary] entry: one launch, resident {entry['resident_ms']:.4f}"
+          f" ms; sharded {entry['sharded_pairs']} pairs in "
+          f"{entry['sharded_launches']} launches; dryrun over "
+          f"{dryrun['where']}: {dryrun['summary']}; card {smi_line}",
+          flush=True)
 
     def talco(name, res, launches, err, plain_ms, replaces):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,

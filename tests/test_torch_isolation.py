@@ -50,6 +50,15 @@ def test_ast_scan_finds_no_jax_or_jax_package_import():
     assert offences == []
 
 
+def test_ast_scan_reaches_the_last_modules():
+    """The scan walks the whole package: the graft entry, the pairs mesh
+    and the SASS census are among its files."""
+    files = {os.path.relpath(f, REPO) for f in _port_sources()}
+    assert {"twilight_tpu_torch/graft_entry.py",
+            "twilight_tpu_torch/parallel/sharding.py",
+            "twilight_tpu_torch/tools/sass_census.py"} <= files
+
+
 def test_ast_scan_catches_an_offence(tmp_path):
     """The scan itself sees each form it looks for."""
     bad = tmp_path / "bad.py"
@@ -67,8 +76,8 @@ def test_ast_scan_catches_an_offence(tmp_path):
 
 # Runs in a fresh interpreter: a meta-path finder refuses jax and the JAX
 # package (and records every attempt), then the port's command line (prot_16
-# on the native, numpy and cpu backends, and a divide-and-conquer run) and
-# its tools run end to end.
+# on the native, numpy and cpu backends, and a divide-and-conquer run), its
+# tools and the graft entry run end to end.
 _CHILD = r"""
 import hashlib, importlib.abc, io, os, sys, contextlib
 REFUSED = {refused!r}
@@ -88,7 +97,9 @@ def md5(p):
     return hashlib.md5(open(p, "rb").read()).hexdigest()
 
 from twilight_tpu_torch.cli import main
-from twilight_tpu_torch.tools import probe_loop_costs, simulate
+from twilight_tpu_torch import graft_entry
+from twilight_tpu_torch.parallel import sharding
+from twilight_tpu_torch.tools import probe_loop_costs, sass_census, simulate
 td = {td!r}
 prot = ["-t", {data!r} + "/prot_16.nwk", "-i", {data!r} + "/prot_16.fa",
         "--type", "p"]
@@ -105,6 +116,10 @@ assert main(["-t", td + "/sim.nwk", "-i", td + "/sim.fa", "-o",
 with contextlib.redirect_stdout(io.StringIO()):
     assert probe_loop_costs.main(["carcass", "--device", "cpu", "--trips",
                                   "2", "4"]) == 0
+step, args = graft_entry.entry("cpu")
+assert step(*args)[1][:, :2].tolist() == [[192, 0]] * 4
+assert sharding.pad_batch_to_mesh(5, sharding.make_pair_mesh(["cpu"] * 4)) == 8
+assert sass_census.opcode("@!P0 BRA 0x1a0") == "BRA"
 print("MD5", *(md5(f"{{td}}/{{b}}.aln") for b in ("native", "numpy", "cpu")))
 print("ATTEMPTS", attempts)
 print("LOADED", sorted(m for m in sys.modules if m.split(".")[0] in REFUSED))

@@ -299,13 +299,14 @@ class DeviceTalco:
                             else None for d in self.devices]
         # launches counts kernel launches on the card; launches_by_device
         # counts the launches of each device in `devices` (of the plain
-        # version on a CPU device); long_launches and wide_launches count
-        # launches by route on either device, and ladder_relaunches the
-        # pairs the retry ladder sent back to one
+        # version on a CPU device); leaf_launches, long_launches and
+        # wide_launches count launches by route on either device, and
+        # ladder_relaunches the pairs the retry ladder sent back to one
         self.stats = {"launches": 0, "pairs": 0, "zero_length": 0,
                       "pairs_on_device": 0, "host_stolen": 0,
                       "err3_fallbacks": 0, "task0_errors": 0,
-                      "long_launches": 0, "wide_launches": 0,
+                      "leaf_launches": 0, "long_launches": 0,
+                      "wide_launches": 0,
                       "ladder_relaunches": 0, "host_wide": 0,
                       "launches_by_device": [0] * len(self.devices)}
 
@@ -476,6 +477,7 @@ class DeviceTalco:
                             launches.append(self._launch(
                                 chunk, padlen, prepared, metas, task, leaf,
                                 flen_param, xdrop, q))
+                            self.stats["leaf_launches"] += int(leaf)
                             self.stats["long_launches"] += int(long_)
                             self.stats["wide_launches"] += int(wide)
 
