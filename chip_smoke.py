@@ -8,8 +8,8 @@ Run from the repository root on a machine with a CUDA device:
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: the nvcc builds of the kernels (one a source, in parallel),
-   timed; each TALCO kernel instance's attributes (registers, local spill
+2. build: the nvcc builds of the kernels (one a source, in parallel,
+   with the probes' barrier-exchange build beside them), timed; each TALCO kernel instance's attributes (registers, local spill
    bytes, static shared bytes, maximum threads) and launch configuration
    (the one every route launches), which must fit the 227 KB opt-in and
    split the rows at talco_cuda.W_S, the split the packer sizes each
@@ -65,13 +65,22 @@ Phases (each prints its own lines; any failure exits non-zero):
    wait), the median of 50 by the host clock, the figure behind the level
    gate of pipeline/aligner.py; the unforced sim2k run of phase 8 must
    make at least one launch through that gate;
-11. loop-cost probes (`probes`, K6-K10): the 9 variants of
-   ops/csrc/probe_loop_costs.cu at 2, 6 and 40 trips, bit-equal to their
-   plain versions on CUDA tensors (NaN positions included), with each
-   variant's registers and local spill bytes; then the
-   port's probe tool (tools/probe_loop_costs.py) times each in ns/step
-   with the launch counts zeroed just before and read just after, and
-   the plain versions are timed per step.
+11. loop-cost probes (`probes`, K6-K10): the 9 one-block variants of
+   ops/csrc/probe_loop_costs.cu and its 5 cluster instances (scalar0d's
+   3 and nested's 2, one cluster of 8 CTAs, a group row a CTA) at 2, 6
+   and 40 trips, bit-equal to their plain versions on CUDA tensors (NaN
+   positions included; the cluster instances also to the row-split plain
+   version; scalar0d's and nested's both layouts also with the initial
+   state's offset, which makes a wrong roll or a skipped exchange change
+   the result), each cluster instance bit-equal to its one-block instance
+   at 4000 trips, with each instance's registers, local spill bytes,
+   threads, cluster size and resident clusters (a cluster instance: no
+   local bytes); then the port's probe tool (tools/probe_loop_costs.py)
+   times each instance in ns/step with the launch counts zeroed just
+   before and read just after, and the plain versions are timed per
+   step. Last, the build whose scalar0d/body and /both exchange at a
+   cluster barrier (-DPROBE_CLUSTER_EXCHANGE=1, built with the others)
+   is held to the same checks and timed beside the default.
 12. workflow (`workflow`): `python -m twilight_tpu_torch.workflow`'s
    iterative mode (run_iterative, what its main runs) on sim10k (10000 x
    1 kb), 2 iterations, default backend: each step's wall (k-mer, Gram on
@@ -122,11 +131,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    torch imported first (timing the import), in turns, each its golden
    md5; -h with torch refused;
 21. SASS census (`census`, right after the build; tools/sass_census.py):
-   the instruction mix by class of the 4 TALCO instances and the 9 probe
-   variants from cuobjdump -sass of the built libraries; every instance
-   must be there, and one whose cudaFuncGetAttributes local size is 0
-   must show no LDL/STL; each TALCO instance's FFMA count is printed
-   with its source (not a check);
+   the instruction mix by class of the 4 TALCO instances, the 9 one-block
+   probe variants and the 5 cluster instances from cuobjdump -sass of the
+   built libraries; every instance must be there, one whose
+   cudaFuncGetAttributes local size is 0 must show no LDL/STL, no probe
+   instance an FFMA, no cluster instance local bytes; each TALCO
+   instance's FFMA count is printed with its source (not a check);
 22. graft entry (`entry`; graft_entry.py): entry() on cuda:0, one launch
    of the TALCO step, held to the plain version on the same CUDA tensors
    and to the oracle, its resident time printed; then the sharded kernel
@@ -147,8 +157,8 @@ Only the port is imported (twilight_tpu_torch); its simulator makes the
 sets, and the inputs, launches, host references and bounds of the kernel
 phases are its tools' (tools/talco_inputs.py). The products' figures are a
 JSON line of their own. The last two lines are a JSON object with the
-kernels' figures (K1/K2, K4, K5, K6-K10: time, plain time, bound,
-launches) and the result line {"ok": true, "device": {...}}. Without a CUDA device, or without the
+kernels' figures (K1/K2, K4, K5, K6-K10, K8 and K10 in both layouts:
+time, plain time, bound, launches) and the result line {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero.
 """
 import hashlib
@@ -180,6 +190,7 @@ PLAIN_SUBSET = 2              # pairs timed through the plain version
 PLAIN_MAX_COLS = 3000         # long pairs also held to the plain version
 LONG_PLAIN_PAIRS = 12         # at most this many of them
 PROBE_PLAIN_TRIPS = (20, 200)  # the plain probes' per-step time
+PROBE_AB_TRIPS = 4000          # a cluster instance against one block
 PROBE_SOURCE = "twilight_tpu_torch/ops/csrc/probe_loop_costs.cu"
 SIM2K = ("sim2k", "-n", "2000", "-l", "1000", "--seed", "0")
 SIM10K = ("sim10k", "-n", "10000", "-l", "1000", "--seed", "0")
@@ -235,19 +246,24 @@ sys.argv = ["twilight_tpu_torch"] + sys.argv[1:]
 runpy.run_module("twilight_tpu_torch", run_name="__main__", alter_sys=True)
 """
 # the probe kernels (K6-K10): wrapper, replaced pallas_call, the variant
-# whose time is the kernel's "ms", f32 operations per loop step
+# whose time is the kernel's "ms", f32 operations per loop step, layout
+# (scalar0d and nested: the cluster instances, then the one-block ones)
 GRP_W = 8 * 640
 PROBES = [
     ("carcass", "K6", "tools/probe_loop_costs.py:86", "carcass",
-     8 * GRP_W + 20 * 8),
+     8 * GRP_W + 20 * 8, "block"),
     ("body", "K7", "tools/probe_loop_costs.py:144", "body/carried",
-     37 * GRP_W + 8),
+     37 * GRP_W + 8, "block"),
     ("scalar0d", "K8", "tools/probe_loop_costs.py:239", "scalar0d/both",
-     41 * GRP_W + 8),
+     41 * GRP_W + 8, "cluster"),
+    ("scalar0d", "K8", "tools/probe_loop_costs.py:239", "scalar0d/both",
+     41 * GRP_W + 8, "block"),
     ("deadcode", "K9", "tools/probe_loop_costs.py:317", "deadcode",
-     37 * GRP_W + 8),
+     37 * GRP_W + 8, "block"),
     ("nested", "K10", "tools/probe_loop_costs.py:391", "nested",
-     37 * GRP_W + 8),
+     37 * GRP_W + 8, "cluster"),
+    ("nested", "K10", "tools/probe_loop_costs.py:391", "nested",
+     37 * GRP_W + 8, "block"),
 ]
 class SmokeFailure(Exception):
     pass
@@ -738,36 +754,81 @@ def _probe_bits_equal(a, b):
     return same, err
 
 
-def phase_probes(torch):
-    """The loop-cost probes (K6-K10): each of the 9 variants through its
-    CUDA kernel at 2, 6 and 40 trips, bit-equal to the plain version on
-    CUDA tensors (NaN positions included); then the port's probe tool
-    (the main path of these kernels) times every variant, with the
-    launch counts zeroed just before and read just after; and the plain
-    version's time per step."""
+def probe_instances():
+    """(variant, layout) of every probe kernel instance: the 9 one-block
+    instances, then the 5 cluster instances."""
     from twilight_tpu_torch.ops import probe_loop
+    return ([(n, "block") for n in probe_loop.REFERENCES]
+            + [(n, "cluster") for n in probe_loop.CLUSTER_VARIANTS])
+
+
+def _probe_checks(torch, probe_loop, name, layout, out, key):
+    """One instance through its kernel at 2, 6 and 40 trips, bit-equal to
+    its plain versions (a cluster instance: also the row-split one), for
+    CLUSTER_VARIANTS also with the offset; its attributes (a cluster
+    instance: 8 CTAs, at least one cluster resident, no local bytes); a
+    cluster instance bit-equal to the one-block one at PROBE_AB_TRIPS."""
+    refs = [probe_loop.REFERENCES[name]]
+    if layout == "cluster":
+        refs.append(probe_loop.SPLIT_REFERENCES[name])
+    offsets = (False, True) if name in probe_loop.CLUSTER_VARIANTS else (
+        False,)
+    worst = 0.0
+    for offset in offsets:
+        for trips in (2, 6, 40):
+            got = probe_loop.run(name, trips, out, layout, offset).clone()
+            torch.cuda.synchronize()
+            for ref in refs:
+                want = (ref(trips, "cuda", True) if offset
+                        else ref(trips, "cuda"))
+                same, err = _probe_bits_equal(got, want)
+                worst = max(worst, err)
+                check(same, f"probes/{key}: kernel != plain version at "
+                            f"{trips} trips (offset {offset})")
+    attr = probe_loop.attributes(name, layout)
+    rec = {"name": name, "layout": layout, "max_abs_err": worst,
+           "offset_checked": len(offsets) == 2, "attributes": attr}
+    if layout == "cluster":
+        check(attr["cluster_size"] == probe_loop.GRP
+              and attr["max_active_clusters"] >= 1
+              and attr["local_bytes"] == 0,
+              f"probes/{key}: cluster attributes {attr}")
+        got = probe_loop.run(name, PROBE_AB_TRIPS, out, "cluster").clone()
+        block = probe_loop.run(name, PROBE_AB_TRIPS, out, "block").clone()
+        torch.cuda.synchronize()
+        same, err = _probe_bits_equal(got, block)
+        check(same, f"probes/{key}: cluster != one block at "
+                    f"{PROBE_AB_TRIPS} trips")
+        rec["max_abs_err_vs_block"] = err
+    return rec
+
+
+def phase_probes(torch):
+    """The loop-cost probes (K6-K10): each of the 9 variants' one-block
+    instance and the 5 cluster instances (scalar0d and nested as one
+    cluster of 8 CTAs) held to their plain versions and to each other
+    (_probe_checks); then the port's probe tool (the main path of these
+    kernels) times every instance, with the launch counts zeroed just
+    before and read just after; the plain version's time per step; last,
+    scalar0d/body's and /both's cluster instances of the barrier-exchange
+    build, held to the same checks and timed."""
+    from twilight_tpu_torch.ops import build, probe_loop
     from twilight_tpu_torch.tools import probe_loop_costs as tool
     out = torch.empty((probe_loop.GRP, probe_loop.W), dtype=torch.float32,
                       device="cuda")
     res = {}
-    for name, ref in probe_loop.REFERENCES.items():
-        worst = 0.0
-        for trips in (2, 6, 40):
-            got = probe_loop.run(name, trips, out).clone()
-            torch.cuda.synchronize()
-            same, err = _probe_bits_equal(got, ref(trips, "cuda"))
-            worst = max(worst, err)
-            check(same, f"probes/{name}: kernel != plain version at {trips} "
-                        "trips")
-        res[name] = {"max_abs_err": worst,
-                     "attributes": probe_loop.attributes(name)}
+    for name, layout in probe_instances():
+        key = f"{name} [{layout}]"
+        res[key] = _probe_checks(torch, probe_loop, name, layout, out, key)
     probe_loop.reset_launches()
-    for name in probe_loop.REFERENCES:
-        res[name]["ns_per_step"] = tool.ns_per_step(name)
-    launches = {fn.__name__: fn.launches for fn in probe_loop.WRAPPERS}
-    for name in probe_loop.REFERENCES:
+    for r in res.values():
+        r["ns_per_step"] = tool.ns_per_step(r["name"], layout=r["layout"])
+    launches = {fn.__name__: {"block": fn.launches - fn.cluster_launches,
+                              "cluster": fn.cluster_launches}
+                for fn in probe_loop.WRAPPERS}
+    plain = {}
+    for name, ref in probe_loop.REFERENCES.items():
         lo, hi = PROBE_PLAIN_TRIPS
-        ref = probe_loop.REFERENCES[name]
         t = []
         for trips in (lo, hi):
             best = float("inf")
@@ -779,13 +840,29 @@ def phase_probes(torch):
                 best = min(best, time.perf_counter() - t0)
             t.append(best)
         steps = (hi - lo) * (2 if name.startswith("nested") else 1)
-        res[name]["plain_ns_per_step"] = 1e9 * (t[1] - t[0]) / steps
-        print(f"[probes] {name}: " + json.dumps(res[name]), flush=True)
+        plain[name] = 1e9 * (t[1] - t[0]) / steps
+    for key, r in res.items():
+        r["plain_ns_per_step"] = plain[r["name"]]
+        print(f"[probes] {key}: " + json.dumps(r), flush=True)
     print(f"[probes] launches on the tool's run: {json.dumps(launches)}",
           flush=True)
-    for fn in probe_loop.WRAPPERS:
-        check(launches[fn.__name__] > 0,
-              f"probes: {fn.__name__} never launched on the tool's run")
+    for name, layout in probe_instances():
+        fn = name.split("/")[0].split("+")[0]
+        check(launches[fn][layout] > 0,
+              f"probes: {fn} never launched its {layout} instance on the "
+              "tool's run")
+    with build.variant(*tool.exchange_flags("barrier")):
+        for name in ("scalar0d/body", "scalar0d/both"):
+            key = f"{name} [cluster, barrier exchange]"
+            rec = _probe_checks(torch, probe_loop, name, "cluster", out, key)
+            rec["ns_per_step"] = tool.ns_per_step(name, layout="cluster")
+            rec["async_ns_per_step"] = res[f"{name} [cluster]"]["ns_per_step"]
+            print(f"[probes] {key}: " + json.dumps(rec), flush=True)
+    cond = res["scalar0d/cond [cluster]"]["ns_per_step"]
+    print("[probes] the row maxima's exchange a step, scalar0d/both - "
+          f"scalar0d/cond: st.async and mbarrier "
+          f"{res['scalar0d/both [cluster]']['ns_per_step'] - cond:.1f} ns, "
+          f"cluster barrier {rec['ns_per_step'] - cond:.1f} ns", flush=True)
     return res, launches
 
 
@@ -1365,10 +1442,12 @@ def phase_multidevice(torch, td):
 
 def phase_census(attributes):
     """The instruction mix of every kernel instance (tools/sass_census.py
-    on the built libraries). Held: all 13 instances are there, and none
-    whose cudaFuncGetAttributes local size is 0 has LDL/STL. Each TALCO
-    instance's FFMA count is printed with its source, not checked: under
-    -fmad=false the correctly rounded division's own fma remains."""
+    on the built libraries). Held: all 18 instances are there, none
+    whose cudaFuncGetAttributes local size is 0 has LDL/STL, no probe
+    instance has an FFMA (they divide nothing), and no cluster instance
+    has local bytes. Each TALCO instance's FFMA count is printed with its
+    source, not checked: under -fmad=false the correctly rounded
+    division's own fma remains."""
     from twilight_tpu_torch.ops import probe_loop
     from twilight_tpu_torch.tools import sass_census
     res = sass_census.census(sass_census.listing())
@@ -1378,12 +1457,16 @@ def phase_census(attributes):
         r = res[inst]
         r["local_bytes"] = (attributes[inst]["local_bytes"]
                             if inst.startswith("talco") else
-                            probe_loop.attributes(r["variant"])
+                            probe_loop.attributes(r["variant"], r["layout"])
                             ["local_bytes"])
         print(f"[census] {inst}: " + json.dumps(r), flush=True)
         check(r["local_bytes"] > 0 or r["ldl"] + r["stl"] == 0,
               f"census: {inst} has {r['ldl']} LDL and {r['stl']} STL, but "
               "cudaFuncGetAttributes reports no local bytes")
+        check("variant" not in r or r["ffma"] == 0,
+              f"census: {inst} ({r.get('variant')}) has {r['ffma']} FFMA")
+        check(r.get("layout") != "cluster" or r["local_bytes"] == 0,
+              f"census: {inst} spills ({r['local_bytes']} local bytes)")
     print("[census]\n" + sass_census.table(
         {i: res[i] for i in sass_census.EXPECTED}), flush=True)
     for inst in sass_census.EXPECTED[:4]:
@@ -1734,10 +1817,13 @@ def main(argv=None):
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.time()
+    from twilight_tpu_torch.tools.probe_loop_costs import exchange_flags
+    # with the probes' barrier-exchange build (the probes phase)
+    build.prebuild((), exchange_flags("barrier"))
     build.load()
     print(f"[build] nvcc {build.build_seconds or 0.0:.2f} s (one nvcc a "
-          f"source, in parallel), load {time.time() - t0:.2f} s, flags "
-          f"{' '.join(build.NVCC_FLAGS)}", flush=True)
+          f"source and flag set, in parallel), load {time.time() - t0:.2f} "
+          f"s, flags {' '.join(build.NVCC_FLAGS)}", flush=True)
     attributes = phase_build()
 
     # the native host kernel is the long phases' reference: build it once
@@ -1839,6 +1925,14 @@ def main(argv=None):
     print("[summary] probes, ns/step: " + ", ".join(
         f"{n} {r['ns_per_step']:.1f}" for n, r in probes.items())
         + f"; card {smi_line}", flush=True)
+    cl = {r["name"]: r for r in probes.values() if r["layout"] == "cluster"}
+    print("[summary] probe clusters, ns/step against one block: " + ", ".join(
+        f"{n} {r['ns_per_step']:.1f} vs "
+        f"{probes[n + ' [block]']['ns_per_step']:.1f}" for n, r in cl.items())
+        + "; the row maxima's exchange through distributed shared memory, "
+        "scalar0d/both - scalar0d/cond: "
+        f"{cl['scalar0d/both']['ns_per_step'] - cl['scalar0d/cond']['ns_per_step']:.1f}"
+        f" ns a step; card {smi_line}", flush=True)
     us_diag = {f"short {k}": v["us_per_diagonal"] for k, v in timing.items()}
     us_diag.update({f"long {k}": v["us_per_diagonal"]
                     for k, v in long_time.items() if k != "plain"})
@@ -1928,20 +2022,24 @@ def main(argv=None):
               long_runs["w20_cuda"]["wide_launches"], wide_err,
               wide["plain_ms_per_pair"], REPLACES_WIDE)]
     from twilight_tpu_torch.tools import talco_inputs as ti
-    for fn, kid, replaces, main_variant, ops in PROBES:
-        vs = {n: r for n, r in probes.items()
-              if n.split("/")[0].split("+")[0] == fn}
-        r = probes[main_variant]
+    for fn, kid, replaces, main_variant, ops, layout in PROBES:
+        vs = {r["name"]: r for r in probes.values()
+              if r["layout"] == layout
+              and r["name"].split("/")[0].split("+")[0] == fn}
+        r = vs[main_variant]
         b_ms, b_by = ti.bound_ms(ops, 0)
+        where = ("one cluster of 8 CTAs" if layout == "cluster"
+                 else "one block")
         kernels.append({
-            "name": f"probe_loop {fn} ({kid}; ms of {main_variant})",
+            "name": f"probe_loop {fn} ({kid}, {where}; ms of "
+                    f"{main_variant})",
             "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
-            "launches": probe_launches[fn],
+            "launches": probe_launches[fn][layout],
             "max_abs_err": max(v["max_abs_err"] for v in vs.values()),
             "ms": r["ns_per_step"] * 1e-6,
             "plain_ms": r["plain_ns_per_step"] * 1e-6,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "unit": "per loop step",
+            "unit": "per loop step", "layout": layout,
             "ns_per_step": {n: v["ns_per_step"] for n, v in vs.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok, flush=True)

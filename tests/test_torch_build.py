@@ -113,3 +113,19 @@ def test_failed_build_raises_with_nvcc_output(standin):
     assert not os.path.exists(build.library_path(build.SOURCES[0],
                                                  ("-DFAIL",)))
     assert build.load() is not None       # the plain libraries still build
+
+
+def test_prebuild_compiles_every_flag_set_once(standin):
+    """prebuild compiles the plain libraries and a variant's in one round;
+    load and variant then compile nothing."""
+    build.prebuild((), ("-DPROBE_CLUSTER_EXCHANGE=1",))
+    want = sorted([f"{s} " for s in build.SOURCES]
+                  + [f"{s} -DPROBE_CLUSTER_EXCHANGE=1"
+                     for s in build.SOURCES])
+    assert compiles(standin) == want
+    assert build._libs == {}               # nothing loaded yet
+    plain = build.load()
+    with build.variant("-DPROBE_CLUSTER_EXCHANGE=1") as lib:
+        assert lib is not plain
+    build.prebuild(())
+    assert compiles(standin) == want

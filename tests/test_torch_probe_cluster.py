@@ -1,0 +1,282 @@
+"""The cluster instances of the loop-cost probes K8 (scalar0d) and K10
+(nested): one cluster of 8 CTAs, CTA g holding group row g
+(ops/csrc/probe_loop_costs.cu, probe_cluster_kernel<V>).
+
+On the CPU: the row-split plain version (each group row its own state,
+the rows meeting only where the cluster kernel exchanges) held bit for bit
+to the whole-state plain version, NaN positions included, with and
+without the initial state's offset; the offset making a wrong roll or a
+skipped exchange change the result; the wrappers' routing to the cluster
+instance by default and to the one-block instance on request, and the
+offset reaching the launch, seen through a stand-in for the library's
+probe_loop_launch (no card); a refused cluster launch raising with no
+one-block launch after it; the probe tool printing both layouts; the SASS
+census naming the cluster instances. The kernels themselves run only on
+a card (chip_smoke.py's `probes` and `census` phases).
+"""
+import types
+
+import pytest
+import torch
+
+from twilight_tpu_torch.ops import build, probe_loop
+from twilight_tpu_torch.tools import probe_loop_costs as port_tool
+from twilight_tpu_torch.tools import sass_census
+
+torch.set_num_threads(1)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a.view(torch.int32)[~na], b.view(torch.int32)[~nb]))
+
+
+@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+def test_row_split_bit_equal_to_whole_state(name):
+    for trips in (2, 6, 40):
+        whole = probe_loop.REFERENCES[name](trips, "cpu")
+        split = probe_loop.SPLIT_REFERENCES[name](trips, "cpu")
+        assert split.shape == whole.shape == (probe_loop.GRP, probe_loop.W)
+        assert _bits_equal(split, whole), f"{name} at {trips} trips"
+
+
+@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+def test_row_split_bit_equal_to_whole_state_with_offset(name):
+    """With the offset, too; every row then differs from every other, and
+    lanes within a row differ."""
+    for trips in (2, 6, 40):
+        whole = probe_loop.REFERENCES[name](trips, "cpu", True)
+        split = probe_loop.SPLIT_REFERENCES[name](trips, "cpu", True)
+        assert _bits_equal(split, whole), f"{name} at {trips} trips"
+    small = probe_loop.REFERENCES[name](2, "cpu", True)
+    assert not _bits_equal(small, probe_loop.REFERENCES[name](2, "cpu"))
+    assert len({tuple(r.tolist()) for r in small}) == probe_loop.GRP
+    assert len(set(small[0].tolist())) > 1
+
+
+def test_offset_is_exact():
+    """g * 2^-7 + x * 2^-12 in f32 equals its exact value."""
+    off = probe_loop._offset("cpu", 0, probe_loop.GRP)
+    g = torch.arange(probe_loop.GRP, dtype=torch.float64)[:, None]
+    x = torch.arange(probe_loop.W, dtype=torch.float64)
+    assert torch.equal(off.double(), g / 128 + x / 4096)
+    assert torch.equal(probe_loop._offset("cpu", 5, 1), off[5:6])
+
+
+@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+def test_offset_makes_a_wrong_roll_visible(monkeypatch, name):
+    """A roll that takes the wrong lane (by two lanes, not one) leaves
+    the tool's uniform state unchanged, and changes it with the offset."""
+    want = {o: probe_loop.SPLIT_REFERENCES[name](2, "cpu", o)
+            for o in (False, True)}
+    roll = torch.roll
+    monkeypatch.setattr(torch, "roll", lambda x, s, d: roll(x, s + 1, d))
+    got = {o: probe_loop.SPLIT_REFERENCES[name](2, "cpu", o)
+           for o in (False, True)}
+    assert _bits_equal(got[False], want[False])
+    assert not _bits_equal(got[True], want[True])
+
+
+@pytest.mark.parametrize("variant", ["body", "both"])
+def test_offset_makes_a_skipped_exchange_visible(monkeypatch, variant):
+    """A CTA that skipped the exchange would compute org from its own row
+    maximum alone. Over the tool's state that is the org of all rows;
+    with the offset, at 2 and 6 trips, some row's own org differs, so
+    its output row (+ org) would."""
+    next_org = probe_loop._next_org
+    for offset, differs in ((False, False), (True, True)):
+        for trips in (2, 6):
+            seen = []
+
+            def spy(org, msp):
+                seen.append(msp.clone())
+                return next_org(org, msp)
+            monkeypatch.setattr(probe_loop, "_next_org", spy)
+            probe_loop.scalar0d_reference(variant, trips, split=True,
+                                          offset=offset)
+            monkeypatch.setattr(probe_loop, "_next_org", next_org)
+            org, own = 0, [0] * probe_loop.GRP
+            for msp in seen:
+                org = next_org(org, msp)
+                own = [next_org(o, msp[g:g + 1]) for g, o in enumerate(own)]
+            assert (own != [org] * probe_loop.GRP) == differs, \
+                (offset, trips, org, own)
+
+
+class _CudaOut:
+    """Stands in for a contiguous f32 (8, 640) CUDA tensor."""
+    dtype = torch.float32
+    shape = (probe_loop.GRP, probe_loop.W)
+    device = torch.device("cuda", 0)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0x1000
+
+
+class _Calls(list):
+    rc = 0          # what the stand-in probe_loop_launch returns
+
+    def __init__(self):
+        super().__init__()
+        self.offsets = []       # the offset argument of each call
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """The (variant id, cluster) of each probe_loop_launch call, through
+    a stand-in library."""
+    calls = _Calls()
+
+    def probe_loop_launch(variant, cluster, trips, walk_floor, offset, out,
+                          stream):
+        calls.append((variant, cluster))
+        calls.offsets.append(offset)
+        return calls.rc
+
+    lib = types.SimpleNamespace(probe_loop_launch=probe_loop_launch)
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(build, "error_string", lambda rc: "stand-in error")
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    probe_loop.reset_launches()
+    yield calls
+    probe_loop.reset_launches()
+
+
+@pytest.mark.parametrize("name", list(probe_loop.KERNEL_ID))
+def test_wrappers_route_by_layout(launches, name):
+    """K8 and K10 launch their cluster instance by default and the
+    one-block instance with layout="block"; the other variants only
+    their one-block instance. Each launch counts once, a cluster launch
+    also in cluster_launches."""
+    vid = probe_loop.KERNEL_ID[name]
+    fn = {"carcass": probe_loop.carcass, "deadcode": probe_loop.deadcode,
+          "nested": probe_loop.nested, "scalar0d": probe_loop.scalar0d,
+          "body": probe_loop.body}[name.split("/")[0].split("+")[0]]
+    probe_loop.run(name, 4, _CudaOut())
+    cluster = name in probe_loop.CLUSTER_VARIANTS
+    assert launches == [(vid, int(cluster))]
+    assert probe_loop.default_layout(name) == (
+        "cluster" if cluster else "block")
+    probe_loop.run(name, 4, _CudaOut(), "block")
+    assert launches[1:] == [(vid, 0)]
+    assert (fn.launches, fn.cluster_launches) == (2, int(cluster))
+    if not cluster:
+        with pytest.raises(ValueError, match="no cluster instance"):
+            probe_loop.run(name, 4, _CudaOut(), "cluster")
+        assert len(launches) == 2
+    assert sum(f.launches for f in probe_loop.WRAPPERS) == 2
+
+
+@pytest.mark.parametrize("layout", probe_loop.LAYOUTS)
+@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+def test_offset_reaches_the_launch(launches, name, layout):
+    """offset=True reaches probe_loop_launch in either layout; the
+    default launches without it."""
+    probe_loop.run(name, 4, _CudaOut(), layout, offset=True)
+    probe_loop.run(name, 4, _CudaOut(), layout)
+    vid, cluster = probe_loop.KERNEL_ID[name], int(layout == "cluster")
+    assert launches == [(vid, cluster)] * 2
+    assert launches.offsets == [1, 0]
+
+
+@pytest.mark.parametrize("name", [n for n in probe_loop.KERNEL_ID
+                                  if n not in probe_loop.CLUSTER_VARIANTS])
+def test_offset_only_where_a_cluster_instance_is(launches, name):
+    with pytest.raises(ValueError, match="takes no offset"):
+        probe_loop.run(name, 4, _CudaOut(), offset=True)
+    assert launches == []
+
+
+@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+def test_refused_cluster_launch_raises_without_fallback(launches, name):
+    launches.rc = 2
+    with pytest.raises(RuntimeError, match="cluster launch failed"):
+        probe_loop.run(name, 4, _CudaOut())
+    assert launches == [(probe_loop.KERNEL_ID[name], 1)]
+    assert sum(f.launches + f.cluster_launches
+               for f in probe_loop.WRAPPERS) == 0
+
+
+def test_layout_names_are_checked():
+    out = torch.empty((probe_loop.GRP, probe_loop.W))
+    with pytest.raises(ValueError, match="layout"):
+        probe_loop.run("nested", 2, out, "grid")
+    with pytest.raises(ValueError, match="layout"):
+        probe_loop.scalar0d("both", 2, out, layout="tile")
+
+
+@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+def test_cpu_wrapper_runs_its_layouts_plain_version(monkeypatch, name):
+    """On a CPU tensor the cluster layout runs the row-split plain
+    version, the one-block layout the whole-state one; neither counts a
+    launch."""
+    seen = []
+    for fn in (probe_loop.scalar0d_reference, probe_loop.nested_reference):
+        def spy(*args, split=False, _fn=fn, **kw):
+            seen.append("split" if split else "whole")
+            return _fn(*args, split=split, **kw)
+        monkeypatch.setattr(probe_loop, fn.__name__, spy)
+    out = torch.empty((probe_loop.GRP, probe_loop.W))
+    probe_loop.run(name, 2, out)
+    probe_loop.run(name, 2, out, "block")
+    assert seen == ["split", "whole"]
+    assert sum(f.launches for f in probe_loop.WRAPPERS) == 0
+
+
+@pytest.mark.parametrize("what,names", [
+    ("scalar0d", ["scalar0d/cond", "scalar0d/body", "scalar0d/both"]),
+    ("nested", ["nested(2 tiles)", "nested(2 tiles)+walk"])])
+def test_port_tool_prints_both_layouts(capsys, what, names):
+    """`--device cpu` prints each K8 and K10 variant twice: the cluster
+    instance under the JAX tool's label, then the one-block instance."""
+    assert port_tool.main([what, "--device", "cpu", "--trips", "2",
+                           "4"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()[1:]
+    labels = [ln.split(": ")[0] for ln in lines]
+    for label in names:
+        k = labels.index(label)
+        assert labels[k + 1] == label + port_tool.BLOCK_SUFFIX
+    for ln in lines:
+        float(ln.split(": ")[1].split()[0])
+
+
+@pytest.mark.parametrize("exchange", port_tool.EXCHANGES)
+def test_cluster_exchange_needs_the_card(capsys, exchange):
+    """--cluster-exchange rebuilds the cluster instances, on the card
+    only; `barrier` adds -DPROBE_CLUSTER_EXCHANGE=1, `async` nothing."""
+    with pytest.raises(SystemExit) as e:
+        port_tool.main(["scalar0d", "--device", "cpu", "--cluster-exchange",
+                        exchange])
+    assert e.value.code == 2
+    assert "--cluster-exchange" in capsys.readouterr().err
+    assert port_tool.exchange_flags(exchange) == (
+        ("-DPROBE_CLUSTER_EXCHANGE=1",) if exchange == "barrier" else ())
+
+
+def test_census_names_the_cluster_instances():
+    """The census names each probe instance's variant and layout, and
+    counts the cluster barrier's arrive, wait and error barrier as
+    barriers and st.async (STAS) as a shared-memory store."""
+    listing = """
+		Function : _ZN12_GLOBAL__N_120probe_cluster_kernelILi5EEEviiPf
+        /*0000*/                   UCGABAR_ARV ;                           /* 0x00000000000079ad */
+        /*0010*/                   UCGABAR_WAIT ;                          /* 0x0000000000007dad */
+        /*0020*/                   CGAERRBAR ;                             /* 0x00000000000075ab */
+        /*0030*/                   STAS [R2], R3 ;                         /* 0x00000003020073ad */
+        /*0040*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R5 ;  /* 0x00000005ff0075a7 */
+        /*0050*/                   EXIT ;                                  /* 0x000000000000794d */
+		Function : _ZN12_GLOBAL__N_117probe_loop_kernelILi5EEEviiPf
+        /*0000*/                   EXIT ;                                  /* 0x000000000000794d */
+"""
+    res = sass_census.census(listing)
+    assert {k: (v["variant"], v["layout"]) for k, v in res.items()} == {
+        "probe_cluster_kernel<5>": ("scalar0d/both", "cluster"),
+        "probe_loop_kernel<5>": ("scalar0d/both", "block")}
+    c = res["probe_cluster_kernel<5>"]["classes"]
+    assert (c["barrier"], c["shared"], c["branch"], c["other"]) == (4, 1, 1, 0)

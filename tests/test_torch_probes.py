@@ -1,8 +1,9 @@
-"""The loop-cost probes (K6-K10): the port's plain versions held to the
-JAX tool's own Pallas kernels (tools/probe_loop_costs.py) run in interpret
-mode, and the port's probe tool on the CPU. The CUDA kernels themselves
-run only on a card (chip_smoke.py holds them bit for bit to the plain
-versions there).
+"""The loop-cost probes (K6-K10): the port's plain versions (whole-state,
+and for scalar0d and nested also row-split, the cluster kernels'
+decomposition) held to the JAX tool's own Pallas kernels
+(tools/probe_loop_costs.py) run in interpret mode, and the port's probe
+tool on the CPU. The CUDA kernels themselves run only on a card
+(chip_smoke.py holds them bit for bit to the plain versions there).
 
 Tolerance rtol 1e-5 with NaN equal to NaN: XLA on the CPU does not keep
 strict f32 operation order, so a strict f32 body/carried matches it bit for
@@ -73,15 +74,16 @@ def _jax_build(monkeypatch, name):
     return got["build"]
 
 
-@pytest.mark.parametrize("name", list(JAX_CALLS))
-def test_plain_version_matches_jax_tool(monkeypatch, capsys, name):
+def _check_against_jax_tool(monkeypatch, name, layout):
+    """The plain version of `layout`'s kernel against the JAX tool's
+    pallas_call at 2, 6 and 40 trips."""
     build = _jax_build(monkeypatch, name)
     got = {}
     for trips in (2, 6, 40):
         want = np.asarray(build(trips)())
         out = torch.empty((probe_loop.GRP, probe_loop.W),
                           dtype=torch.float32)
-        got[trips] = probe_loop.run(name, trips, out).numpy()
+        got[trips] = probe_loop.run(name, trips, out, layout).numpy()
         assert want.shape == got[trips].shape == (8, 640)
         np.testing.assert_allclose(got[trips], want, rtol=1e-5, atol=0,
                                    equal_nan=True,
@@ -91,6 +93,19 @@ def test_plain_version_matches_jax_tool(monkeypatch, capsys, name):
     else:
         assert np.isfinite(got[6]).all()
     assert sum(fn.launches for fn in probe_loop.WRAPPERS) == 0
+
+
+@pytest.mark.parametrize("name", list(JAX_CALLS))
+def test_plain_version_matches_jax_tool(monkeypatch, capsys, name):
+    """The whole-state plain version (the one-block kernel's)."""
+    _check_against_jax_tool(monkeypatch, name, "block")
+
+
+@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+def test_row_split_matches_jax_tool(monkeypatch, capsys, name):
+    """The row-split plain version (the cluster kernel's decomposition:
+    each group row its own state)."""
+    _check_against_jax_tool(monkeypatch, name, "cluster")
 
 
 def test_loop_steps_and_wrapper_checks():
@@ -111,18 +126,25 @@ def test_loop_steps_and_wrapper_checks():
 @pytest.mark.parametrize("what,lines", [
     ("carcass", ["carcass rows=8 cols=20"]),
     ("body", ["body/carried", "body/scratch"]),
-    ("scalar0d", ["body/carried", "scalar0d/cond", "scalar0d/body",
-                  "scalar0d/both"]),
+    ("scalar0d", ["body/carried", "scalar0d/cond",
+                  "scalar0d/cond [one block]", "scalar0d/body",
+                  "scalar0d/body [one block]", "scalar0d/both",
+                  "scalar0d/both [one block]"]),
     ("deadcode", ["body/carried", "deadcode"]),
-    ("nested", ["body/carried", "nested(2 tiles)", "nested(2 tiles)+walk"]),
+    ("nested", ["body/carried", "nested(2 tiles)",
+                "nested(2 tiles) [one block]", "nested(2 tiles)+walk",
+                "nested(2 tiles)+walk [one block]"]),
     ("all", ["carcass rows=8 cols=20", "body/carried", "body/scratch",
-             "body/carried", "scalar0d/cond", "scalar0d/body",
-             "scalar0d/both"]),
+             "body/carried", "scalar0d/cond", "scalar0d/cond [one block]",
+             "scalar0d/body", "scalar0d/body [one block]", "scalar0d/both",
+             "scalar0d/both [one block]"]),
 ])
 def test_port_tool_argv_and_format(capsys, what, lines):
     """The port's tool takes the JAX tool's argv and prints one
-    'label: X ns/step' line per variant, in the JAX tool's order (here on
-    the CPU with the plain versions, at 2 and 4 trips)."""
+    'label: X ns/step' line per variant, in the JAX tool's order, and for
+    scalar0d's and nested's variants a second line for the one-block
+    instance (here on the CPU with the plain versions, at 2 and 4
+    trips)."""
     assert port_tool.main([what, "--device", "cpu", "--trips", "2",
                            "4"]) == 0
     out = capsys.readouterr().out.strip().splitlines()

@@ -142,15 +142,18 @@ def test_cli_listing_json(tmp_path, capsys):
 
 
 def test_expected_instances():
-    """The 4 TALCO instances and the 9 probe variants, the probe names in
-    probe_loop.KERNEL_ID's order."""
-    from twilight_tpu_torch.ops.probe_loop import KERNEL_ID
-    assert len(sass_census.EXPECTED) == 13
+    """The 4 TALCO instances, the 9 one-block probe variants, the probe
+    names in probe_loop.KERNEL_ID's order, and the 5 cluster instances
+    of scalar0d and nested."""
+    from twilight_tpu_torch.ops.probe_loop import CLUSTER_VARIANTS, KERNEL_ID
+    assert len(sass_census.EXPECTED) == 18
     assert sass_census.EXPECTED[:4] == (
         "talco_xdrop_kernel<6, false>", "talco_xdrop_kernel<6, true>",
         "talco_xdrop_kernel<22, false>", "talco_xdrop_kernel<22, true>")
     for name, v in KERNEL_ID.items():
         assert sass_census.PROBE_VARIANTS[v] == name
+    assert sass_census.EXPECTED[13:] == tuple(
+        f"probe_cluster_kernel<{KERNEL_ID[n]}>" for n in CLUSTER_VARIANTS)
 
 
 def test_missing_cuobjdump_raises_naming_it(monkeypatch):

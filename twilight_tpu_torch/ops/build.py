@@ -7,7 +7,9 @@ and the flags, and the libraries are loaded with ctypes (the same route as
 source with the same flags, start together and run in parallel. A failed
 build raises with nvcc's error output. Nothing builds at import.
 `variant(*flags)` makes the wrappers use libraries built with extra nvcc
-flags (the kernel's -DTALCO_PROFILE build) within a `with` block.
+flags (the kernel's -DTALCO_PROFILE build) within a `with` block;
+`prebuild(*flag_sets)` compiles the libraries of several flag sets in one
+parallel round, ahead of their use.
 """
 from __future__ import annotations
 
@@ -60,9 +62,9 @@ class Kernels:
         bind(talco, "talco_xdrop_attributes", ci,
              [ci, ci, ctypes.POINTER(ctypes.c_int)])
         bind(talco, "talco_xdrop_error_string", ctypes.c_char_p, [ci])
-        bind(probe, "probe_loop_launch", ci, [ci, ci, ci, vp, vp])
+        bind(probe, "probe_loop_launch", ci, [ci, ci, ci, ci, ci, vp, vp])
         bind(probe, "probe_loop_attributes", ci,
-             [ci, ctypes.POINTER(ctypes.c_int)])
+             [ci, ci, ctypes.POINTER(ctypes.c_int)])
 
 
 def nvcc_path() -> str:
@@ -90,41 +92,55 @@ def library_path(name: str, extra=()) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
+def _compile(flag_sets) -> None:
+    """Builds every missing library of the flag sets (extra flags each),
+    one nvcc a library, all started together; call with _lock held."""
+    global build_seconds
+    todo = [(name, extra, library_path(name, extra))
+            for extra in flag_sets for name in SOURCES]
+    todo = [job for job in todo if not os.path.exists(job[2])]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.time()
+    procs = []
+    for name, extra, so in todo:
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp,
+               os.path.join(SRC_DIR, name)]
+        procs.append((cmd, tmp, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    failed = []
+    for cmd, tmp, so, proc in procs:
+        out, errs = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{errs}{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_seconds = time.time() - t0
+
+
+def prebuild(*flag_sets) -> None:
+    """Builds the libraries of each set of extra flags (() for the
+    plain ones) in one parallel round, without loading them."""
+    with _lock:
+        _compile([tuple(f) for f in flag_sets])
+
+
 def load() -> Kernels:
     """The kernels' libraries (of the `variant` in force), built on first
     use."""
-    global build_seconds
     extra = _extra
     with _lock:
         if extra in _libs:
             return _libs[extra]
-        paths = {name: library_path(name, extra) for name in SOURCES}
-        todo = [(name, so) for name, so in paths.items()
-                if not os.path.exists(so)]
-        if todo:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            t0 = time.time()
-            procs = []
-            for name, so in todo:
-                tmp = f"{so}.{os.getpid()}.tmp"
-                cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp,
-                       os.path.join(SRC_DIR, name)]
-                procs.append((cmd, tmp, so, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                    text=True)))
-            failed = []
-            for cmd, tmp, so, proc in procs:
-                out, errs = proc.communicate()
-                if proc.returncode != 0:
-                    failed.append(f"nvcc failed ({proc.returncode}): "
-                                  f"{' '.join(cmd)}\n{errs}{out}")
-                else:
-                    os.replace(tmp, so)
-            if failed:
-                raise RuntimeError("\n".join(failed))
-            build_seconds = time.time() - t0
-        _libs[extra] = Kernels({name: ctypes.CDLL(so)
-                                for name, so in paths.items()})
+        _compile([extra])
+        _libs[extra] = Kernels({name: ctypes.CDLL(library_path(name, extra))
+                                for name in SOURCES})
         return _libs[extra]
 
 

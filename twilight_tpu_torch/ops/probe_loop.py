@@ -19,9 +19,23 @@ DP-like anti-diagonal body in one program. Each computes a (GRP, W) =
 - `nested` (K10, :391): `body/carried` inside a 2-trip outer loop whose
   state seeds the inner loop, optionally with dead walks.
 
-The kernels are `csrc/probe_loop_costs.cu` (one block per launch, module
-doc there). A wrapper given a CPU tensor runs the plain version; given a
-CUDA tensor it launches the kernel on the current stream, or raises.
+The kernels are `csrc/probe_loop_costs.cu` (module doc there), in two
+layouts. `block`: one block holds the whole (8, 640) state, as one TPU
+program did. `cluster` (scalar0d's and nested's five variants, their
+default): one cluster of 8 CTAs, CTA g holding group row g, the rows
+meeting only where the program combines them, through distributed
+shared memory: scalar0d/body and /both every body (st.async stores that
+complete the receiving CTA's mbarrier), nested+walk at each tile's end
+(a cluster barrier). A wrapper given a CPU tensor runs the plain
+version of its layout's kernel (`cluster`: the row-split plain version,
+`split=True`, bit-equal to the whole-state one); given a CUDA tensor it
+launches the kernel on the current stream, or raises: a refused cluster
+launch never falls back to one block.
+
+`offset=True` (scalar0d and nested, either layout and the plain versions)
+starts the carried rows at base + g * 2^-7 + x * 2^-12 (group row g, lane
+x): the tool's state is the same in every row and lane, and the offset
+makes a value routed to the wrong lane, CTA or slot change the result.
 
 `body/scratch` reads its scratch before it writes it: on the TPU the
 result is undefined, and the JAX interpreter fills scratch with NaN. The
@@ -47,6 +61,15 @@ KERNEL_ID = {"carcass": 0, "body/carried": 1, "body/scratch": 2,
              "deadcode": 6, "nested": 7, "nested+walk": 8}
 BODY_VARIANTS = ("carried", "scratch")
 SCALAR0D_VARIANTS = ("cond", "body", "both")
+LAYOUTS = ("cluster", "block")
+# the variants with a cluster instance (their default layout)
+CLUSTER_VARIANTS = ("scalar0d/cond", "scalar0d/body", "scalar0d/both",
+                    "nested", "nested+walk")
+
+
+def default_layout(name: str) -> str:
+    """`cluster` for the five variants that have it, else `block`."""
+    return "cluster" if name in CLUSTER_VARIANTS else "block"
 
 
 def loop_steps(trips: int) -> int:
@@ -70,16 +93,30 @@ def _check(out: torch.Tensor, trips: int) -> None:
         raise ValueError(f"unsupported device {out.device}")
 
 
-def _launch(kind: str, trips: int, out: torch.Tensor) -> None:
+def _layout(name: str, layout: str) -> bool:
+    """Whether `layout` of variant `name` is its cluster instance."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}")
+    if layout == "cluster" and name not in CLUSTER_VARIANTS:
+        raise ValueError(f"{name} has no cluster instance (those are "
+                         f"{CLUSTER_VARIANTS})")
+    return layout == "cluster"
+
+
+def _launch(kind: str, trips: int, out: torch.Tensor,
+            cluster: bool = False, offset: bool = False) -> None:
     from . import build
     lib = build.load()
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = lib.probe_loop_launch(KERNEL_ID[kind], trips, WALK_FLOOR,
+    rc = lib.probe_loop_launch(KERNEL_ID[kind], int(cluster), trips,
+                               WALK_FLOOR, int(offset),
                                ctypes.c_void_p(out.data_ptr()),
                                ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"probe_loop {kind} launch failed: "
-                           f"{build.error_string(rc)} (cudaError {rc})")
+        raise RuntimeError(f"probe_loop {kind} "
+                           f"{'cluster' if cluster else 'block'} launch "
+                           f"failed: {build.error_string(rc)} (cudaError "
+                           f"{rc})")
 
 
 def carcass(trips: int, out: torch.Tensor) -> torch.Tensor:
@@ -104,16 +141,21 @@ def body(variant: str, trips: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def scalar0d(variant: str, trips: int, out: torch.Tensor) -> torch.Tensor:
-    """K8, variant `cond`, `body` or `both`, into `out`."""
+def scalar0d(variant: str, trips: int, out: torch.Tensor,
+             layout: str = "cluster", offset: bool = False) -> torch.Tensor:
+    """K8, variant `cond`, `body` or `both`, into `out`, as one cluster
+    of 8 CTAs or (layout `block`) one block; `offset`: module doc."""
     if variant not in SCALAR0D_VARIANTS:
         raise ValueError(
             f"scalar0d variant must be one of {SCALAR0D_VARIANTS}")
+    cluster = _layout(f"scalar0d/{variant}", layout)
     _check(out, trips)
     if out.device.type == "cpu":
-        return out.copy_(scalar0d_reference(variant, trips))
-    _launch(f"scalar0d/{variant}", trips, out)
+        return out.copy_(scalar0d_reference(variant, trips, split=cluster,
+                                            offset=offset))
+    _launch(f"scalar0d/{variant}", trips, out, cluster, offset)
     scalar0d.launches += 1
+    scalar0d.cluster_launches += cluster
     return out
 
 
@@ -127,54 +169,78 @@ def deadcode(trips: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def nested(with_walk: bool, trips: int, out: torch.Tensor) -> torch.Tensor:
-    """K10 (with or without the dead walks) into `out`."""
+def nested(with_walk: bool, trips: int, out: torch.Tensor,
+           layout: str = "cluster", offset: bool = False) -> torch.Tensor:
+    """K10 (with or without the dead walks) into `out`, as one cluster of
+    8 CTAs or (layout `block`) one block; `offset`: module doc."""
+    name = "nested+walk" if with_walk else "nested"
+    cluster = _layout(name, layout)
     _check(out, trips)
     if out.device.type == "cpu":
-        return out.copy_(nested_reference(with_walk, trips))
-    _launch("nested+walk" if with_walk else "nested", trips, out)
+        return out.copy_(nested_reference(with_walk, trips, split=cluster,
+                                          offset=offset))
+    _launch(name, trips, out, cluster, offset)
     nested.launches += 1
+    nested.cluster_launches += cluster
     return out
 
 
+# launches: every launch of the wrapper; cluster_launches: those of its
+# cluster instances (scalar0d and nested only)
 WRAPPERS = (carcass, body, scalar0d, deadcode, nested)
-for _fn in WRAPPERS:
-    _fn.launches = 0
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS:
-        fn.launches = 0
+        fn.launches = fn.cluster_launches = 0
 
 
-def run(name: str, trips: int, out: torch.Tensor) -> torch.Tensor:
-    """One of the nine variants by its name in KERNEL_ID."""
+reset_launches()
+
+
+def run(name: str, trips: int, out: torch.Tensor, layout: str = None,
+        offset: bool = False) -> torch.Tensor:
+    """One of the nine variants by its name in KERNEL_ID, in `layout`
+    (default: default_layout(name)); `offset` for CLUSTER_VARIANTS only."""
+    if name not in KERNEL_ID:
+        raise ValueError(f"unknown probe {name!r}")
+    layout = layout or default_layout(name)
+    if name in CLUSTER_VARIANTS:
+        if name.startswith("nested"):
+            return nested(name == "nested+walk", trips, out, layout, offset)
+        return scalar0d(name.partition("/")[2], trips, out, layout, offset)
+    _layout(name, layout)
+    if offset:
+        raise ValueError(f"{name} takes no offset (those that do are "
+                         f"{CLUSTER_VARIANTS})")
     if name == "carcass":
         return carcass(trips, out)
     if name == "deadcode":
         return deadcode(trips, out)
-    if name in ("nested", "nested+walk"):
-        return nested(name == "nested+walk", trips, out)
-    kind, _, variant = name.partition("/")
-    if kind == "body":
-        return body(variant, trips, out)
-    if kind == "scalar0d":
-        return scalar0d(variant, trips, out)
-    raise ValueError(f"unknown probe {name!r}")
+    return body(name.partition("/")[2], trips, out)
 
 
-def attributes(name: str) -> dict:
-    """cudaFuncGetAttributes of one variant's kernel (needs a CUDA device):
-    registers and local (spill) bytes per thread, static shared bytes and
-    maximum threads per block."""
+def attributes(name: str, layout: str = None) -> dict:
+    """cudaFuncGetAttributes of one variant's kernel in `layout` (default:
+    default_layout(name); needs a CUDA device): registers and local
+    (spill) bytes per thread, static shared bytes, maximum threads per
+    block; the launch's threads a block and blocks a cluster; and for a
+    cluster, cudaOccupancyMaxActiveClusters of its launch (None for one
+    block)."""
     from . import build
-    out = (ctypes.c_int * 4)()
-    rc = build.load().probe_loop_attributes(KERNEL_ID[name], out)
+    cluster = _layout(name, layout or default_layout(name))
+    out = (ctypes.c_int * 7)()
+    rc = build.load().probe_loop_attributes(KERNEL_ID[name], int(cluster),
+                                            out)
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: "
                            f"{build.error_string(rc)} (cudaError {rc})")
-    return dict(zip(("registers", "local_bytes", "static_shared_bytes",
-                     "max_threads_per_block"), (int(v) for v in out)))
+    res = dict(zip(("registers", "local_bytes", "static_shared_bytes",
+                    "max_threads_per_block", "threads", "cluster_size",
+                    "max_active_clusters"), (int(v) for v in out)))
+    if not cluster:
+        res["max_active_clusters"] = None
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -216,14 +282,28 @@ def _math(r, msp):
             diag + i_v * 0.01], _max(msp, mx)
 
 
-def _rows(device, fill=None):
-    return [torch.full((GRP, W), float(i) + 1.0 if fill is None else fill,
+def _rows(device, fill=None, n=GRP):
+    return [torch.full((n, W), float(i) + 1.0 if fill is None else fill,
                        dtype=torch.float32, device=device)
             for i in range(N_ROWS)]
 
 
-def _msp0(device):
-    return torch.full((GRP, 1), -1e3, dtype=torch.float32, device=device)
+def _msp0(device, n=GRP):
+    return torch.full((n, 1), -1e3, dtype=torch.float32, device=device)
+
+
+def _offset(device, g0: int, n: int) -> torch.Tensor:
+    """The initial state's offset of group rows g0..g0+n-1 (module doc):
+    g * 2^-7 + x * 2^-12, exact in f32."""
+    g = torch.arange(g0, g0 + n, dtype=torch.float32, device=device)
+    x = torch.arange(W, dtype=torch.float32, device=device)
+    return g[:, None] * 2.0 ** -7 + x * 2.0 ** -12
+
+
+def _parts(split: bool) -> int:
+    """Group rows a state holds: 1 when the program runs split by row,
+    as the cluster kernel's CTAs run it, else all GRP in one state."""
+    return 1 if split else GRP
 
 
 def carcass_reference(trips: int, device="cpu") -> torch.Tensor:
@@ -253,12 +333,35 @@ def body_reference(variant: str, trips: int, device="cpu") -> torch.Tensor:
     return rows[0] + msp
 
 
-def scalar0d_reference(variant: str, trips: int,
-                       device="cpu") -> torch.Tensor:
-    lane_w = torch.arange(W, dtype=torch.int32,
-                          device=device).expand(GRP, W)
-    rows = _rows(device)
-    msp = _msp0(device)
+def _next_org(org: int, msp: torch.Tensor) -> int:
+    """scalar0d's 0-d reductions over the (GRP, 1) row maxima, into the
+    carried `org`."""
+    alive = msp > -2e3
+    nl = torch.where(alive, (_to_int32(msp) & 0x7) + 1,
+                     torch.tensor(2 ** 30, dtype=torch.int32,
+                                  device=msp.device))
+    nu = torch.where(alive, _to_int32(msp) & 0x3,
+                     torch.tensor(0, dtype=torch.int32, device=msp.device))
+    lmin, umax = int(nl.min()), int(nu.max())
+    if bool(alive.any()):
+        org = max(org, min(lmin, umax))
+    return min(org, 7)
+
+
+def scalar0d_reference(variant: str, trips: int, device="cpu",
+                       split: bool = False,
+                       offset: bool = False) -> torch.Tensor:
+    """`split`: each group row its own (1, W) state, the rows meeting only
+    in `body`'s and `both`'s 0-d reductions after every body (the cluster
+    kernel's exchange); the loop condition's `run` and `cnt` do not depend
+    on the data, so every state sees the same. `offset`: module doc."""
+    n = _parts(split)
+    lane_w = torch.arange(W, dtype=torch.int32, device=device)
+    states = [[_rows(device, n=n), _msp0(device, n)]
+              for _ in range(GRP // n)]
+    if offset:
+        for s, st in enumerate(states):
+            st[0] = [r + _offset(device, s * n, n) for r in st[0]]
     org = 0
     run = torch.ones((GRP, 1), dtype=torch.int32, device=device)
     cnt = torch.zeros((GRP, 1), dtype=torch.int32, device=device)
@@ -273,23 +376,15 @@ def scalar0d_reference(variant: str, trips: int,
             x_rel = lane_w - org % W
             bias = torch.where(x_rel < 0, torch.tensor(0.0, device=device),
                                torch.tensor(1e-30, device=device))
-            rows, msp = _math([rows[0] + bias] + rows[1:], msp)
+            for st in states:
+                rows = st[0]
+                st[0], st[1] = _math([rows[0] + bias] + rows[1:], st[1])
             k += 1
             if variant in ("body", "both"):
-                alive = msp > -2e3
-                nl = torch.where(alive, (_to_int32(msp) & 0x7) + 1,
-                                 torch.tensor(2 ** 30, dtype=torch.int32,
-                                              device=device))
-                nu = torch.where(alive, _to_int32(msp) & 0x3,
-                                 torch.tensor(0, dtype=torch.int32,
-                                              device=device))
-                lmin, umax = int(nl.min()), int(nu.max())
-                if bool(alive.any()):
-                    org = max(org, min(lmin, umax))
-                org = min(org, 7)
+                org = _next_org(org, torch.cat([st[1] for st in states]))
             run = (cnt + 1 < trips).to(torch.int32)
             cnt = cnt + 1
-    return rows[0] + msp + float(org)
+    return torch.cat([st[0][0] + st[1] for st in states]) + float(org)
 
 
 def _dead_walks(msp: torch.Tensor) -> int:
@@ -306,25 +401,54 @@ def deadcode_reference(trips: int, device="cpu") -> torch.Tensor:
     return rows[0] + msp + float(_dead_walks(msp))
 
 
-def nested_reference(with_walk: bool, trips: int,
-                     device="cpu") -> torch.Tensor:
-    acc = torch.zeros((GRP, W), dtype=torch.float32, device=device)
+def nested_reference(with_walk: bool, trips: int, device="cpu",
+                     split: bool = False,
+                     offset: bool = False) -> torch.Tensor:
+    """`split`: each group row its own (1, W) state, the rows meeting only
+    in nested+walk's maximum over all row maxima at each tile's end.
+    `offset`: module doc."""
+    n = _parts(split)
+    accs = [torch.zeros((n, W), dtype=torch.float32, device=device)
+            for _ in range(GRP // n)]
     for _ in range(2):
-        rows = [acc * 0.001 + (i + 1.0) for i in range(N_ROWS)]
-        rows, msp = _carried_loop(rows, _msp0(device), trips)
-        emit = _dead_walks(msp) if with_walk else 0
-        acc = rows[0] + msp + float(emit)
-    return acc
+        states = []
+        for s, acc in enumerate(accs):
+            rows = [acc * 0.001 + (i + 1.0) for i in range(N_ROWS)]
+            if offset:
+                rows = [r + _offset(device, s * n, n) for r in rows]
+            states.append(_carried_loop(rows, _msp0(device, n), trips))
+        emit = (_dead_walks(torch.cat([msp for _, msp in states]))
+                if with_walk else 0)
+        accs = [rows[0] + msp + float(emit) for rows, msp in states]
+    return torch.cat(accs)
 
 
+# the whole-state plain versions; those of CLUSTER_VARIANTS (here and in
+# SPLIT_REFERENCES) take the offset as a third argument
 REFERENCES = {
     "carcass": lambda t, d: carcass_reference(t, d),
     "body/carried": lambda t, d: body_reference("carried", t, d),
     "body/scratch": lambda t, d: body_reference("scratch", t, d),
-    "scalar0d/cond": lambda t, d: scalar0d_reference("cond", t, d),
-    "scalar0d/body": lambda t, d: scalar0d_reference("body", t, d),
-    "scalar0d/both": lambda t, d: scalar0d_reference("both", t, d),
+    "scalar0d/cond": lambda t, d, o=False: scalar0d_reference(
+        "cond", t, d, offset=o),
+    "scalar0d/body": lambda t, d, o=False: scalar0d_reference(
+        "body", t, d, offset=o),
+    "scalar0d/both": lambda t, d, o=False: scalar0d_reference(
+        "both", t, d, offset=o),
     "deadcode": lambda t, d: deadcode_reference(t, d),
-    "nested": lambda t, d: nested_reference(False, t, d),
-    "nested+walk": lambda t, d: nested_reference(True, t, d),
+    "nested": lambda t, d, o=False: nested_reference(False, t, d, offset=o),
+    "nested+walk": lambda t, d, o=False: nested_reference(True, t, d,
+                                                          offset=o),
+}
+# the row-split plain versions: the cluster instances' decomposition
+SPLIT_REFERENCES = {
+    "scalar0d/cond": lambda t, d, o=False: scalar0d_reference(
+        "cond", t, d, True, o),
+    "scalar0d/body": lambda t, d, o=False: scalar0d_reference(
+        "body", t, d, True, o),
+    "scalar0d/both": lambda t, d, o=False: scalar0d_reference(
+        "both", t, d, True, o),
+    "nested": lambda t, d, o=False: nested_reference(False, t, d, True, o),
+    "nested+walk": lambda t, d, o=False: nested_reference(True, t, d, True,
+                                                          o),
 }

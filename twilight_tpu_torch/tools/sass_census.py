@@ -5,7 +5,8 @@ The counterpart of tools/mosaic_census.py, which counts the Mosaic IR ops
 of the grouped Pallas kernel's loop bodies. Here the compiler's output is
 SASS: `cuobjdump -sass` of each library of `build.SOURCES`
 (`talco_xdrop.cu`: the four `talco_xdrop_kernel<P, Leaf>` instances;
-`probe_loop_costs.cu`: the nine `probe_loop_kernel<V>` probe variants).
+`probe_loop_costs.cu`: the nine one-block `probe_loop_kernel<V>` probe
+variants and the five cluster instances `probe_cluster_kernel<V>`).
 Each function's instructions are counted by class after stripping the
 predicate (`@P0`, `@!PT`) and the modifiers (`.64`, `.E`, `.STRONG.GPU`):
 
@@ -14,9 +15,11 @@ predicate (`@P0`, `@!PT`) and the modifiers (`.64`, `.E`, `.STRONG.GPU`):
   their uniform-datapath forms)
 - move: MOV, S2R, LDC, CS2R, R2UR, ... (registers, constants, special
   registers, predicates)
-- shared: LDS, STS, ATOMS, LDSM; global: LDG, STG, ATOMG, RED, LDGSTS;
-  local: LDL, STL (spills and stack arrays)
-- barrier: BAR, SYNCS, MEMBAR, WARPSYNC, DEPBAR, ...
+- shared: LDS, STS, ATOMS, LDSM, STAS (st.async into a cluster peer's
+  shared memory); global: LDG, STG, ATOMG, RED, LDGSTS; local: LDL, STL
+  (spills and stack arrays)
+- barrier: BAR, SYNCS (mbarriers), MEMBAR, WARPSYNC, DEPBAR, UCGABAR_ARV
+  and UCGABAR_WAIT (the cluster barrier's arrive and wait), ...
 - warp: SHFL, VOTE, MATCH, REDUX, ELECT, ENDCOLLECTIVE
 - branch: BRA, BSSY, BSYNC, CALL, RET, EXIT, ...
 - conversion: F2I, I2F, F2F, I2I, F2FP, ...
@@ -50,7 +53,7 @@ import subprocess
 import sys
 from typing import Dict, List, Tuple
 
-from ..ops.probe_loop import KERNEL_ID
+from ..ops.probe_loop import CLUSTER_VARIANTS, KERNEL_ID
 
 CLASSES = {
     "fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK",
@@ -63,11 +66,12 @@ CLASSES = {
                 "UIMNMX", "UBREV", "VIADD", "VIADDMNMX", "VIMNMX3"),
     "move": ("MOV", "MOV32I", "UMOV", "S2R", "S2UR", "CS2R", "LDC", "ULDC",
              "R2UR", "P2R", "R2P", "UP2UR"),
-    "shared": ("LDS", "STS", "ATOMS", "LDSM", "STSM"),
+    "shared": ("LDS", "STS", "ATOMS", "LDSM", "STSM", "STAS"),
     "global": ("LDG", "STG", "ATOMG", "RED", "LDGSTS", "ATOM", "LD", "ST"),
     "local": ("LDL", "STL"),
     "barrier": ("BAR", "SYNCS", "MEMBAR", "WARPSYNC", "DEPBAR", "LDGDEPBAR",
-                "ERRBAR", "FENCE", "CCTL", "ARRIVES"),
+                "ERRBAR", "FENCE", "CCTL", "ARRIVES", "UCGABAR_ARV",
+                "UCGABAR_WAIT", "CGAERRBAR"),
     "warp": ("SHFL", "VOTE", "VOTEU", "MATCH", "REDUX", "ELECT",
              "ENDCOLLECTIVE"),
     "branch": ("BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "JMP",
@@ -76,12 +80,16 @@ CLASSES = {
 }
 CLASS_ORDER = tuple(CLASSES) + ("other",)
 _CLASS_OF = {op: cls for cls, ops in CLASSES.items() for op in ops}
-KERNELS = ("talco_xdrop_kernel", "probe_loop_kernel")
-# probe_loop_kernel<V>'s variant names, by V
+KERNELS = ("talco_xdrop_kernel", "probe_loop_kernel", "probe_cluster_kernel")
+# the probe kernels' variant names, by their template argument V
 PROBE_VARIANTS = tuple(sorted(KERNEL_ID, key=KERNEL_ID.get))
+# a probe kernel's layout (ops/probe_loop.LAYOUTS), by its name
+PROBE_LAYOUTS = {"probe_loop_kernel": "block",
+                 "probe_cluster_kernel": "cluster"}
 EXPECTED = tuple(f"talco_xdrop_kernel<{p}, {leaf}>" for p in (6, 22)
                  for leaf in ("false", "true")) + tuple(
-    f"probe_loop_kernel<{v}>" for v in range(len(PROBE_VARIANTS)))
+    f"probe_loop_kernel<{v}>" for v in range(len(PROBE_VARIANTS))) + tuple(
+    f"probe_cluster_kernel<{KERNEL_ID[n]}>" for n in CLUSTER_VARIANTS)
 
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)\s*$", re.M)
 # "/*0070*/  @!P0 BRA 0x1a0 ;": the address, then the instruction up to
@@ -181,7 +189,7 @@ def count(instrs: List[str]) -> dict:
 
 def census(text: str) -> Dict[str, dict]:
     """{instance: mix} of every function in a cuobjdump -sass listing;
-    probe instances carry their variant's name."""
+    probe instances carry their variant's name and layout."""
     funcs = split_functions(text)
     names = demangle([f for f, _ in funcs])
     out: Dict[str, dict] = {}
@@ -191,9 +199,10 @@ def census(text: str) -> Dict[str, dict]:
             raise ValueError(f"sass_census: {inst} appears twice in the "
                              "listing")
         rec = {"function": mangled, **count(instrs)}
-        m = re.fullmatch(r"probe_loop_kernel<(\d+)>", inst)
-        if m and int(m.group(1)) < len(PROBE_VARIANTS):
-            rec["variant"] = PROBE_VARIANTS[int(m.group(1))]
+        m = re.fullmatch(f"({'|'.join(PROBE_LAYOUTS)})<(\\d+)>", inst)
+        if m and int(m.group(2)) < len(PROBE_VARIANTS):
+            rec["variant"] = PROBE_VARIANTS[int(m.group(2))]
+            rec["layout"] = PROBE_LAYOUTS[m.group(1)]
         out[inst] = rec
     return out
 
