@@ -66,16 +66,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    gate of pipeline/aligner.py; the unforced sim2k run of phase 8 must
    make at least one launch through that gate;
 11. loop-cost probes (`probes`, K6-K10): the 9 one-block variants of
-   ops/csrc/probe_loop_costs.cu and its 5 cluster instances (scalar0d's
-   3 and nested's 2, one cluster of 8 CTAs, a group row a CTA) at 2, 6
-   and 40 trips, bit-equal to their plain versions on CUDA tensors (NaN
-   positions included; the cluster instances also to the row-split plain
-   version; scalar0d's and nested's both layouts also with the initial
-   state's offset, which makes a wrong roll or a skipped exchange change
-   the result), each cluster instance bit-equal to its one-block instance
+   ops/csrc/probe_loop_costs.cu and its 8 cluster instances (every
+   variant but the carcass, one cluster of 8 CTAs, a group row a CTA) at
+   2, 6 and 40 trips, bit-equal to their plain versions on CUDA tensors
+   (NaN positions included; every variant but the carcass in both
+   layouts also with the initial state's offset, which makes a wrong
+   roll or a skipped exchange change the result, and body/scratch then
+   finite), each cluster instance bit-equal to its one-block instance
    at 4000 trips, with each instance's registers, local spill bytes,
    threads, cluster size and resident clusters (a cluster instance: no
-   local bytes); then the port's probe tool (tools/probe_loop_costs.py)
+   local bytes); deadcode and nested+walk in both layouts with live
+   walks (2 trips, the offset, walk_floor 4096: the exchange that
+   starts them is then seen), bit-equal to their plain versions, whose
+   walks emit; then the port's probe tool (tools/probe_loop_costs.py)
    times each instance in ns/step with the launch counts zeroed just
    before and read just after, and the plain versions are timed per
    step. Last, the build whose scalar0d/body and /both exchange at a
@@ -132,7 +135,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    md5; -h with torch refused;
 21. SASS census (`census`, right after the build; tools/sass_census.py):
    the instruction mix by class of the 4 TALCO instances, the 9 one-block
-   probe variants and the 5 cluster instances from cuobjdump -sass of the
+   probe variants and the 8 cluster instances from cuobjdump -sass of the
    built libraries; every instance must be there, one whose
    cudaFuncGetAttributes local size is 0 must show no LDL/STL, no probe
    instance an FFMA, no cluster instance local bytes; each TALCO
@@ -191,6 +194,7 @@ PLAIN_MAX_COLS = 3000         # long pairs also held to the plain version
 LONG_PLAIN_PAIRS = 12         # at most this many of them
 PROBE_PLAIN_TRIPS = (20, 200)  # the plain probes' per-step time
 PROBE_AB_TRIPS = 4000          # a cluster instance against one block
+PROBE_LIVE_WALK_FLOOR = 4096   # above every row maximum at 2 trips
 PROBE_SOURCE = "twilight_tpu_torch/ops/csrc/probe_loop_costs.cu"
 SIM2K = ("sim2k", "-n", "2000", "-l", "1000", "--seed", "0")
 SIM10K = ("sim10k", "-n", "10000", "-l", "1000", "--seed", "0")
@@ -247,17 +251,21 @@ runpy.run_module("twilight_tpu_torch", run_name="__main__", alter_sys=True)
 """
 # the probe kernels (K6-K10): wrapper, replaced pallas_call, the variant
 # whose time is the kernel's "ms", f32 operations per loop step, layout
-# (scalar0d and nested: the cluster instances, then the one-block ones)
+# (K7-K10: the cluster instances, then the one-block ones)
 GRP_W = 8 * 640
 PROBES = [
     ("carcass", "K6", "tools/probe_loop_costs.py:86", "carcass",
      8 * GRP_W + 20 * 8, "block"),
+    ("body", "K7", "tools/probe_loop_costs.py:144", "body/carried",
+     37 * GRP_W + 8, "cluster"),
     ("body", "K7", "tools/probe_loop_costs.py:144", "body/carried",
      37 * GRP_W + 8, "block"),
     ("scalar0d", "K8", "tools/probe_loop_costs.py:239", "scalar0d/both",
      41 * GRP_W + 8, "cluster"),
     ("scalar0d", "K8", "tools/probe_loop_costs.py:239", "scalar0d/both",
      41 * GRP_W + 8, "block"),
+    ("deadcode", "K9", "tools/probe_loop_costs.py:317", "deadcode",
+     37 * GRP_W + 8, "cluster"),
     ("deadcode", "K9", "tools/probe_loop_costs.py:317", "deadcode",
      37 * GRP_W + 8, "block"),
     ("nested", "K10", "tools/probe_loop_costs.py:391", "nested",
@@ -756,7 +764,7 @@ def _probe_bits_equal(a, b):
 
 def probe_instances():
     """(variant, layout) of every probe kernel instance: the 9 one-block
-    instances, then the 5 cluster instances."""
+    instances, then the 8 cluster instances."""
     from twilight_tpu_torch.ops import probe_loop
     return ([(n, "block") for n in probe_loop.REFERENCES]
             + [(n, "cluster") for n in probe_loop.CLUSTER_VARIANTS])
@@ -764,13 +772,11 @@ def probe_instances():
 
 def _probe_checks(torch, probe_loop, name, layout, out, key):
     """One instance through its kernel at 2, 6 and 40 trips, bit-equal to
-    its plain versions (a cluster instance: also the row-split one), for
-    CLUSTER_VARIANTS also with the offset; its attributes (a cluster
-    instance: 8 CTAs, at least one cluster resident, no local bytes); a
-    cluster instance bit-equal to the one-block one at PROBE_AB_TRIPS."""
-    refs = [probe_loop.REFERENCES[name]]
-    if layout == "cluster":
-        refs.append(probe_loop.SPLIT_REFERENCES[name])
+    its plain version, for CLUSTER_VARIANTS also with the offset (and
+    body/scratch then finite); its attributes (a cluster instance: 8
+    CTAs, at least one cluster resident, no local bytes); a cluster
+    instance bit-equal to the one-block one at PROBE_AB_TRIPS."""
+    ref = probe_loop.REFERENCES[name]
     offsets = (False, True) if name in probe_loop.CLUSTER_VARIANTS else (
         False,)
     worst = 0.0
@@ -778,13 +784,15 @@ def _probe_checks(torch, probe_loop, name, layout, out, key):
         for trips in (2, 6, 40):
             got = probe_loop.run(name, trips, out, layout, offset).clone()
             torch.cuda.synchronize()
-            for ref in refs:
-                want = (ref(trips, "cuda", True) if offset
-                        else ref(trips, "cuda"))
-                same, err = _probe_bits_equal(got, want)
-                worst = max(worst, err)
-                check(same, f"probes/{key}: kernel != plain version at "
-                            f"{trips} trips (offset {offset})")
+            want = ref(trips, "cuda", True) if offset else ref(trips, "cuda")
+            same, err = _probe_bits_equal(got, want)
+            worst = max(worst, err)
+            check(same, f"probes/{key}: kernel != plain version at "
+                        f"{trips} trips (offset {offset})")
+            if name == "body/scratch" and offset and trips < 40:
+                check(bool(torch.isfinite(got).all()),
+                      f"probes/{key}: not finite with the offset at "
+                      f"{trips} trips")
     attr = probe_loop.attributes(name, layout)
     rec = {"name": name, "layout": layout, "max_abs_err": worst,
            "offset_checked": len(offsets) == 2, "attributes": attr}
@@ -803,11 +811,36 @@ def _probe_checks(torch, probe_loop, name, layout, out, key):
     return rec
 
 
+def _live_walk_checks(torch, probe_loop, out):
+    """deadcode and nested+walk in both layouts with the walks live (2
+    trips, the offset, walk_floor PROBE_LIVE_WALK_FLOOR): bit-equal to
+    the plain version, whose walks emit in every tile. A CTA that started
+    the walks from its own row maximum would emit another count (the row
+    maxima differ by row with the offset), so the exchange before the
+    walks is seen."""
+    res = {}
+    for name in probe_loop.WALK_VARIANTS:
+        emits = []
+        want = probe_loop.REFERENCES[name](2, "cuda", True,
+                                           PROBE_LIVE_WALK_FLOOR, emits)
+        check(min(emits) > 0, f"probes/{name}: the live walks emit {emits}")
+        for layout in probe_loop.LAYOUTS:
+            got = probe_loop.run(name, 2, out, layout, True,
+                                 PROBE_LIVE_WALK_FLOOR).clone()
+            torch.cuda.synchronize()
+            same, err = _probe_bits_equal(got, want)
+            check(same, f"probes/{name} [{layout}]: kernel != plain version "
+                        "with live walks")
+            res[f"{name} [{layout}]"] = {"emits": emits, "max_abs_err": err}
+    return res
+
+
 def phase_probes(torch):
     """The loop-cost probes (K6-K10): each of the 9 variants' one-block
-    instance and the 5 cluster instances (scalar0d and nested as one
-    cluster of 8 CTAs) held to their plain versions and to each other
-    (_probe_checks); then the port's probe tool (the main path of these
+    instance and the 8 cluster instances (every variant but the carcass
+    as one cluster of 8 CTAs) held to their plain versions and to each
+    other (_probe_checks), and the walks live (_live_walk_checks); then
+    the port's probe tool (the main path of these
     kernels) times every instance, with the launch counts zeroed just
     before and read just after; the plain version's time per step; last,
     scalar0d/body's and /both's cluster instances of the barrier-exchange
@@ -820,6 +853,9 @@ def phase_probes(torch):
     for name, layout in probe_instances():
         key = f"{name} [{layout}]"
         res[key] = _probe_checks(torch, probe_loop, name, layout, out, key)
+    print("[probes] live walks (2 trips, offset, walk_floor "
+          f"{PROBE_LIVE_WALK_FLOOR}): "
+          + json.dumps(_live_walk_checks(torch, probe_loop, out)), flush=True)
     probe_loop.reset_launches()
     for r in res.values():
         r["ns_per_step"] = tool.ns_per_step(r["name"], layout=r["layout"])
@@ -859,6 +895,14 @@ def phase_probes(torch):
             rec["async_ns_per_step"] = res[f"{name} [cluster]"]["ns_per_step"]
             print(f"[probes] {key}: " + json.dumps(rec), flush=True)
     cond = res["scalar0d/cond [cluster]"]["ns_per_step"]
+    bare = res["body/carried [cluster]"]["ns_per_step"]
+    print("[probes] the split step's parts, cluster: body/carried (the "
+          f"bare step) {bare:.1f} ns; scalar0d/cond - body/carried (bias "
+          f"and condition) {cond - bare:.1f} ns; deadcode - body/carried "
+          f"{res['deadcode [cluster]']['ns_per_step'] - bare:.1f} ns; "
+          "body/scratch - body/carried (the rows in shared memory) "
+          f"{res['body/scratch [cluster]']['ns_per_step'] - bare:.1f} ns",
+          flush=True)
     print("[probes] the row maxima's exchange a step, scalar0d/both - "
           f"scalar0d/cond: st.async and mbarrier "
           f"{res['scalar0d/both [cluster]']['ns_per_step'] - cond:.1f} ns, "
@@ -1442,7 +1486,7 @@ def phase_multidevice(torch, td):
 
 def phase_census(attributes):
     """The instruction mix of every kernel instance (tools/sass_census.py
-    on the built libraries). Held: all 18 instances are there, none
+    on the built libraries). Held: all 21 instances are there, none
     whose cudaFuncGetAttributes local size is 0 has LDL/STL, no probe
     instance has an FFMA (they divide nothing), and no cluster instance
     has local bytes. Each TALCO instance's FFMA count is printed with its

@@ -1,18 +1,19 @@
-"""The cluster instances of the loop-cost probes K8 (scalar0d) and K10
-(nested): one cluster of 8 CTAs, CTA g holding group row g
-(ops/csrc/probe_loop_costs.cu, probe_cluster_kernel<V>).
+"""The cluster instances of the loop-cost probes K7 (body), K8
+(scalar0d), K9 (deadcode) and K10 (nested): one cluster of 8 CTAs, CTA g
+holding group row g (ops/csrc/probe_loop_costs.cu, probe_cluster_kernel<V>).
 
-On the CPU: the row-split plain version (each group row its own state,
-the rows meeting only where the cluster kernel exchanges) held bit for bit
-to the whole-state plain version, NaN positions included, with and
-without the initial state's offset; the offset making a wrong roll or a
-skipped exchange change the result; the wrappers' routing to the cluster
-instance by default and to the one-block instance on request, and the
-offset reaching the launch, seen through a stand-in for the library's
-probe_loop_launch (no card); a refused cluster launch raising with no
-one-block launch after it; the probe tool printing both layouts; the SASS
-census naming the cluster instances. The kernels themselves run only on
-a card (chip_smoke.py's `probes` and `census` phases).
+On the CPU: the initial state's offset making every row and lane differ,
+and a wrong roll or a skipped exchange change the result; live walks
+(walk_floor above the row maxima) that emit, and that a walk started from
+one row's maximum instead of all 8's would change; the wrappers' routing
+to the cluster instance by default and to the one-block instance on
+request, and the offset and walk_floor reaching the launch, seen through
+a stand-in for the library's probe_loop_launch (no card); a refused
+cluster launch raising with no one-block launch after it; the CPU
+wrappers running the one plain version in either layout; the probe tool
+printing both layouts; the SASS census naming the cluster instances. The
+kernels themselves run only on a card (chip_smoke.py's `probes` and
+`census` phases).
 """
 import types
 
@@ -33,23 +34,11 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 @pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
-def test_row_split_bit_equal_to_whole_state(name):
-    for trips in (2, 6, 40):
-        whole = probe_loop.REFERENCES[name](trips, "cpu")
-        split = probe_loop.SPLIT_REFERENCES[name](trips, "cpu")
-        assert split.shape == whole.shape == (probe_loop.GRP, probe_loop.W)
-        assert _bits_equal(split, whole), f"{name} at {trips} trips"
-
-
-@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
-def test_row_split_bit_equal_to_whole_state_with_offset(name):
-    """With the offset, too; every row then differs from every other, and
-    lanes within a row differ."""
-    for trips in (2, 6, 40):
-        whole = probe_loop.REFERENCES[name](trips, "cpu", True)
-        split = probe_loop.SPLIT_REFERENCES[name](trips, "cpu", True)
-        assert _bits_equal(split, whole), f"{name} at {trips} trips"
+def test_offset_makes_every_row_and_lane_differ(name):
+    """With the offset every row differs from every other, lanes within a
+    row differ, and the result differs from the tool's program."""
     small = probe_loop.REFERENCES[name](2, "cpu", True)
+    assert small.shape == (probe_loop.GRP, probe_loop.W)
     assert not _bits_equal(small, probe_loop.REFERENCES[name](2, "cpu"))
     assert len({tuple(r.tolist()) for r in small}) == probe_loop.GRP
     assert len(set(small[0].tolist())) > 1
@@ -57,22 +46,21 @@ def test_row_split_bit_equal_to_whole_state_with_offset(name):
 
 def test_offset_is_exact():
     """g * 2^-7 + x * 2^-12 in f32 equals its exact value."""
-    off = probe_loop._offset("cpu", 0, probe_loop.GRP)
+    off = probe_loop._offset("cpu")
     g = torch.arange(probe_loop.GRP, dtype=torch.float64)[:, None]
     x = torch.arange(probe_loop.W, dtype=torch.float64)
     assert torch.equal(off.double(), g / 128 + x / 4096)
-    assert torch.equal(probe_loop._offset("cpu", 5, 1), off[5:6])
 
 
 @pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
 def test_offset_makes_a_wrong_roll_visible(monkeypatch, name):
     """A roll that takes the wrong lane (by two lanes, not one) leaves
     the tool's uniform state unchanged, and changes it with the offset."""
-    want = {o: probe_loop.SPLIT_REFERENCES[name](2, "cpu", o)
+    want = {o: probe_loop.REFERENCES[name](2, "cpu", o)
             for o in (False, True)}
     roll = torch.roll
     monkeypatch.setattr(torch, "roll", lambda x, s, d: roll(x, s + 1, d))
-    got = {o: probe_loop.SPLIT_REFERENCES[name](2, "cpu", o)
+    got = {o: probe_loop.REFERENCES[name](2, "cpu", o)
            for o in (False, True)}
     assert _bits_equal(got[False], want[False])
     assert not _bits_equal(got[True], want[True])
@@ -93,8 +81,7 @@ def test_offset_makes_a_skipped_exchange_visible(monkeypatch, variant):
                 seen.append(msp.clone())
                 return next_org(org, msp)
             monkeypatch.setattr(probe_loop, "_next_org", spy)
-            probe_loop.scalar0d_reference(variant, trips, split=True,
-                                          offset=offset)
+            probe_loop.scalar0d_reference(variant, trips, offset=offset)
             monkeypatch.setattr(probe_loop, "_next_org", next_org)
             org, own = 0, [0] * probe_loop.GRP
             for msp in seen:
@@ -102,6 +89,56 @@ def test_offset_makes_a_skipped_exchange_visible(monkeypatch, variant):
                 own = [next_org(o, msp[g:g + 1]) for g, o in enumerate(own)]
             assert (own != [org] * probe_loop.GRP) == differs, \
                 (offset, trips, org, own)
+
+
+LIVE = 4096        # a walk_floor above every row maximum at 2 trips
+
+
+@pytest.mark.parametrize("name", probe_loop.WALK_VARIANTS)
+def test_live_walks_emit(name):
+    """With the offset and walk_floor = LIVE at 2 trips the walks run
+    (emit above 0 in every tile) and change the result; at WALK_FLOOR
+    they emit nothing."""
+    ref = probe_loop.REFERENCES[name]
+    emits, dead = [], []
+    live = ref(2, "cpu", True, LIVE, emits)
+    off = ref(2, "cpu", True, probe_loop.WALK_FLOOR, dead)
+    assert emits and min(emits) > 0 and set(dead) == {0}
+    assert torch.isfinite(live).all()
+    assert not _bits_equal(live, off)
+
+
+@pytest.mark.parametrize("name", probe_loop.WALK_VARIANTS)
+def test_live_walks_see_a_skipped_exchange(monkeypatch, name):
+    """A CTA that skipped the exchange before the walks would start them
+    from its own row maximum, not the maximum of all 8. That copy (each
+    row's emit from its own row's walks) gives the tool's result at
+    WALK_FLOOR, and another with the offset and live walks."""
+    ref = probe_loop.REFERENCES[name]
+    want = {wf: ref(2, "cpu", True, wf)
+            for wf in (probe_loop.WALK_FLOOR, LIVE)}
+    walks = probe_loop._dead_walks
+
+    def own_row(msp, walk_floor, scratch):
+        return torch.tensor([[float(walks(msp[g:g + 1], walk_floor,
+                                          scratch))]
+                             for g in range(probe_loop.GRP)])
+    monkeypatch.setattr(probe_loop, "_dead_walks", own_row)
+    got = {wf: ref(2, "cpu", True, wf) for wf in want}
+    assert _bits_equal(got[probe_loop.WALK_FLOOR], want[probe_loop.WALK_FLOOR])
+    assert not _bits_equal(got[LIVE], want[LIVE])
+
+
+@pytest.mark.parametrize("trips", [2, 6])
+def test_scratch_with_offset_is_finite(trips):
+    """body/scratch with the offset starts from body/carried's rows plus
+    the offset, not from NaN: finite, and equal to body/carried's."""
+    got = probe_loop.REFERENCES["body/scratch"](trips, "cpu", True)
+    assert torch.isfinite(got).all()
+    assert _bits_equal(got, probe_loop.REFERENCES["body/carried"](
+        trips, "cpu", True))
+    assert torch.isnan(probe_loop.REFERENCES["body/scratch"](trips,
+                                                             "cpu")).all()
 
 
 class _CudaOut:
@@ -123,6 +160,7 @@ class _Calls(list):
     def __init__(self):
         super().__init__()
         self.offsets = []       # the offset argument of each call
+        self.walk_floors = []   # the walk_floor argument of each call
 
 
 @pytest.fixture
@@ -135,6 +173,7 @@ def launches(monkeypatch):
                           stream):
         calls.append((variant, cluster))
         calls.offsets.append(offset)
+        calls.walk_floors.append(walk_floor)
         return calls.rc
 
     lib = types.SimpleNamespace(probe_loop_launch=probe_loop_launch)
@@ -150,10 +189,10 @@ def launches(monkeypatch):
 
 @pytest.mark.parametrize("name", list(probe_loop.KERNEL_ID))
 def test_wrappers_route_by_layout(launches, name):
-    """K8 and K10 launch their cluster instance by default and the
-    one-block instance with layout="block"; the other variants only
-    their one-block instance. Each launch counts once, a cluster launch
-    also in cluster_launches."""
+    """Every variant but the carcass launches its cluster instance by
+    default and the one-block instance with layout="block"; the carcass
+    only its one-block instance. Each launch counts once, a cluster
+    launch also in cluster_launches."""
     vid = probe_loop.KERNEL_ID[name]
     fn = {"carcass": probe_loop.carcass, "deadcode": probe_loop.deadcode,
           "nested": probe_loop.nested, "scalar0d": probe_loop.scalar0d,
@@ -193,6 +232,28 @@ def test_offset_only_where_a_cluster_instance_is(launches, name):
     assert launches == []
 
 
+@pytest.mark.parametrize("layout", probe_loop.LAYOUTS)
+@pytest.mark.parametrize("name", ["deadcode", "nested", "nested+walk"])
+def test_walk_floor_reaches_the_launch(launches, name, layout):
+    """walk_floor reaches probe_loop_launch in either layout; the default
+    launches with WALK_FLOOR."""
+    probe_loop.run(name, 2, _CudaOut(), layout, True, LIVE)
+    probe_loop.run(name, 2, _CudaOut(), layout)
+    vid, cluster = probe_loop.KERNEL_ID[name], int(layout == "cluster")
+    assert launches == [(vid, cluster)] * 2
+    assert launches.walk_floors == [LIVE, probe_loop.WALK_FLOOR]
+    assert launches.offsets == [1, 0]
+
+
+@pytest.mark.parametrize("name", [n for n in probe_loop.KERNEL_ID if
+                                  n.split("/")[0].split("+")[0]
+                                  not in ("deadcode", "nested")])
+def test_walk_floor_only_for_deadcode_and_nested(launches, name):
+    with pytest.raises(ValueError, match="takes no walk_floor"):
+        probe_loop.run(name, 2, _CudaOut(), walk_floor=LIVE)
+    assert launches == []
+
+
 @pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
 def test_refused_cluster_launch_raises_without_fallback(launches, name):
     launches.rc = 2
@@ -213,27 +274,32 @@ def test_layout_names_are_checked():
 
 @pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
 def test_cpu_wrapper_runs_its_layouts_plain_version(monkeypatch, name):
-    """On a CPU tensor the cluster layout runs the row-split plain
-    version, the one-block layout the whole-state one; neither counts a
+    """On a CPU tensor both layouts run the variant's one plain version,
+    with the same arguments and the same result; neither counts a
     launch."""
     seen = []
-    for fn in (probe_loop.scalar0d_reference, probe_loop.nested_reference):
-        def spy(*args, split=False, _fn=fn, **kw):
-            seen.append("split" if split else "whole")
-            return _fn(*args, split=split, **kw)
+    for fn in (probe_loop.body_reference, probe_loop.scalar0d_reference,
+               probe_loop.deadcode_reference, probe_loop.nested_reference):
+        def spy(*args, _fn=fn, **kw):
+            seen.append((_fn.__name__, args, kw))
+            return _fn(*args, **kw)
         monkeypatch.setattr(probe_loop, fn.__name__, spy)
     out = torch.empty((probe_loop.GRP, probe_loop.W))
-    probe_loop.run(name, 2, out)
-    probe_loop.run(name, 2, out, "block")
-    assert seen == ["split", "whole"]
+    got = {layout: probe_loop.run(name, 2, out, layout, True).clone()
+           for layout in probe_loop.LAYOUTS}
+    assert len(seen) == 2 and seen[0] == seen[1]
+    assert _bits_equal(got["cluster"], got["block"])
     assert sum(f.launches for f in probe_loop.WRAPPERS) == 0
 
 
 @pytest.mark.parametrize("what,names", [
-    ("scalar0d", ["scalar0d/cond", "scalar0d/body", "scalar0d/both"]),
-    ("nested", ["nested(2 tiles)", "nested(2 tiles)+walk"])])
+    ("scalar0d", ["body/carried", "scalar0d/cond", "scalar0d/body",
+                  "scalar0d/both"]),
+    ("nested", ["body/carried", "nested(2 tiles)", "nested(2 tiles)+walk"]),
+    ("body", ["body/carried", "body/scratch"]),
+    ("deadcode", ["body/carried", "deadcode"])])
 def test_port_tool_prints_both_layouts(capsys, what, names):
-    """`--device cpu` prints each K8 and K10 variant twice: the cluster
+    """`--device cpu` prints each K7-K10 variant twice: the cluster
     instance under the JAX tool's label, then the one-block instance."""
     assert port_tool.main([what, "--device", "cpu", "--trips", "2",
                            "4"]) == 0

@@ -1,9 +1,10 @@
-"""The loop-cost probes (K6-K10): the port's plain versions (whole-state,
-and for scalar0d and nested also row-split, the cluster kernels'
-decomposition) held to the JAX tool's own Pallas kernels
-(tools/probe_loop_costs.py) run in interpret mode, and the port's probe
-tool on the CPU. The CUDA kernels themselves run only on a card
-(chip_smoke.py holds them bit for bit to the plain versions there).
+"""The loop-cost probes (K6-K10): the port's plain versions, reached
+through the CPU wrappers of either layout, held to the JAX tool's own
+Pallas kernels (tools/probe_loop_costs.py) run in interpret mode, also
+with the walks live (the tool's walk start patched); deadcode's scratch
+fill against the interpreter's; and the port's probe tool on the CPU.
+The CUDA kernels themselves run only on a card (chip_smoke.py holds them
+bit for bit to the plain versions there).
 
 Tolerance rtol 1e-5 with NaN equal to NaN: XLA on the CPU does not keep
 strict f32 operation order, so a strict f32 body/carried matches it bit for
@@ -97,15 +98,54 @@ def _check_against_jax_tool(monkeypatch, name, layout):
 
 @pytest.mark.parametrize("name", list(JAX_CALLS))
 def test_plain_version_matches_jax_tool(monkeypatch, capsys, name):
-    """The whole-state plain version (the one-block kernel's)."""
+    """The plain version through the one-block layout's CPU wrapper."""
     _check_against_jax_tool(monkeypatch, name, "block")
 
 
 @pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
 def test_row_split_matches_jax_tool(monkeypatch, capsys, name):
-    """The row-split plain version (the cluster kernel's decomposition:
-    each group row its own state)."""
+    """The plain version through the cluster layout's CPU wrapper (the
+    one plain version: the kernel splits the state by row, its plain
+    version does not need to)."""
     _check_against_jax_tool(monkeypatch, name, "cluster")
+
+
+LIVE = 4096        # a walk_floor above every row maximum at 2 trips
+
+
+@pytest.mark.parametrize("name", probe_loop.WALK_VARIANTS)
+def test_live_walks_match_jax_tool(monkeypatch, capsys, name):
+    """With the walks live, the plain version steps them as the JAX
+    tool's wstep does: the tool's walk start min(max(msp), -1) becomes
+    min(max(msp), LIVE) (the one jnp.minimum of two 0-d int32 values in
+    either program), its int8 scratch as the interpreter leaves it, at 2
+    trips (the tool has no offset)."""
+    import jax.numpy as jnp
+    build = _jax_build(monkeypatch, name)
+    minimum = jnp.minimum
+
+    def live_start(a, b):
+        if all(getattr(x, "shape", None) == ()
+               and getattr(x, "dtype", None) == jnp.int32 for x in (a, b)):
+            b = jnp.int32(LIVE)
+        return minimum(a, b)
+    monkeypatch.setattr(jnp, "minimum", live_start)
+    want = np.asarray(build(2)())
+    emits = []
+    got = probe_loop.REFERENCES[name](2, "cpu", False, LIVE, emits).numpy()
+    assert min(emits) > 0
+    assert not np.array_equal(want, probe_loop.REFERENCES[name](2, "cpu")
+                              .numpy())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+
+
+def test_tbs_fill_is_the_interpreters_uninitialised_int8():
+    """deadcode's int8 scratch starts at the value the JAX interpreter
+    gives uninitialised int8 scratch."""
+    import jax.numpy as jnp
+    from jax._src.pallas import primitives
+    v = np.asarray(primitives.uninitialized_value((2,), jnp.int8))
+    assert v.tolist() == [probe_loop.TBS_FILL] * 2
 
 
 def test_loop_steps_and_wrapper_checks():
@@ -123,26 +163,29 @@ def test_loop_steps_and_wrapper_checks():
         1, -1, 2 ** 31 - 1, -2 ** 31, 0, 2 ** 31 - 1]
 
 
+B = " [one block]"
+CARRIED = ["body/carried", "body/carried" + B]
+
+
 @pytest.mark.parametrize("what,lines", [
     ("carcass", ["carcass rows=8 cols=20"]),
-    ("body", ["body/carried", "body/scratch"]),
-    ("scalar0d", ["body/carried", "scalar0d/cond",
-                  "scalar0d/cond [one block]", "scalar0d/body",
-                  "scalar0d/body [one block]", "scalar0d/both",
-                  "scalar0d/both [one block]"]),
-    ("deadcode", ["body/carried", "deadcode"]),
-    ("nested", ["body/carried", "nested(2 tiles)",
-                "nested(2 tiles) [one block]", "nested(2 tiles)+walk",
-                "nested(2 tiles)+walk [one block]"]),
-    ("all", ["carcass rows=8 cols=20", "body/carried", "body/scratch",
-             "body/carried", "scalar0d/cond", "scalar0d/cond [one block]",
-             "scalar0d/body", "scalar0d/body [one block]", "scalar0d/both",
-             "scalar0d/both [one block]"]),
+    ("body", CARRIED + ["body/scratch", "body/scratch" + B]),
+    ("scalar0d", CARRIED + ["scalar0d/cond", "scalar0d/cond" + B,
+                            "scalar0d/body", "scalar0d/body" + B,
+                            "scalar0d/both", "scalar0d/both" + B]),
+    ("deadcode", CARRIED + ["deadcode", "deadcode" + B]),
+    ("nested", CARRIED + ["nested(2 tiles)", "nested(2 tiles)" + B,
+                          "nested(2 tiles)+walk",
+                          "nested(2 tiles)+walk" + B]),
+    ("all", ["carcass rows=8 cols=20"] + CARRIED
+     + ["body/scratch", "body/scratch" + B] + CARRIED
+     + ["scalar0d/cond", "scalar0d/cond" + B, "scalar0d/body",
+        "scalar0d/body" + B, "scalar0d/both", "scalar0d/both" + B]),
 ])
 def test_port_tool_argv_and_format(capsys, what, lines):
     """The port's tool takes the JAX tool's argv and prints one
     'label: X ns/step' line per variant, in the JAX tool's order, and for
-    scalar0d's and nested's variants a second line for the one-block
+    every variant but the carcass a second line for the one-block
     instance (here on the CPU with the plain versions, at 2 and 4
     trips)."""
     assert port_tool.main([what, "--device", "cpu", "--trips", "2",

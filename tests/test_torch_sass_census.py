@@ -143,10 +143,12 @@ def test_cli_listing_json(tmp_path, capsys):
 
 def test_expected_instances():
     """The 4 TALCO instances, the 9 one-block probe variants, the probe
-    names in probe_loop.KERNEL_ID's order, and the 5 cluster instances
-    of scalar0d and nested."""
+    names in probe_loop.KERNEL_ID's order, and the 8 cluster instances
+    (every variant but the carcass: body's 2, scalar0d's 3, deadcode,
+    nested's 2)."""
     from twilight_tpu_torch.ops.probe_loop import CLUSTER_VARIANTS, KERNEL_ID
-    assert len(sass_census.EXPECTED) == 18
+    assert len(sass_census.EXPECTED) == 21
+    assert "probe_cluster_kernel<0>" not in sass_census.EXPECTED
     assert sass_census.EXPECTED[:4] == (
         "talco_xdrop_kernel<6, false>", "talco_xdrop_kernel<6, true>",
         "talco_xdrop_kernel<22, false>", "talco_xdrop_kernel<22, true>")
@@ -154,6 +156,22 @@ def test_expected_instances():
         assert sass_census.PROBE_VARIANTS[v] == name
     assert sass_census.EXPECTED[13:] == tuple(
         f"probe_cluster_kernel<{KERNEL_ID[n]}>" for n in CLUSTER_VARIANTS)
+
+
+@pytest.mark.parametrize("v,name", [(1, "body/carried"),
+                                    (2, "body/scratch"), (6, "deadcode")])
+def test_census_names_the_new_cluster_instances(v, name):
+    """K7's and K9's cluster instances are named by variant and layout,
+    beside their one-block instances, and are expected."""
+    listing = (f"\t\tFunction : _ZN12_GLOBAL__N_120probe_cluster_kernelILi{v}"
+               "EEEviiiPf\n        /*0000*/                   EXIT ;\n"
+               f"\t\tFunction : _ZN12_GLOBAL__N_117probe_loop_kernelILi{v}"
+               "EEEviiiPf\n        /*0000*/                   EXIT ;\n")
+    res = sass_census.census(listing)
+    assert {k: (r["variant"], r["layout"]) for k, r in res.items()} == {
+        f"probe_cluster_kernel<{v}>": (name, "cluster"),
+        f"probe_loop_kernel<{v}>": (name, "block")}
+    assert f"probe_cluster_kernel<{v}>" in sass_census.EXPECTED
 
 
 def test_missing_cuobjdump_raises_naming_it(monkeypatch):

@@ -13,15 +13,15 @@
 // in the same order (build with -fmad=false), so the two agree bit for
 // bit, NaN positions included.
 //
-// Two layouts. scalar0d's three variants and nested's two have both; the
-// other four only the first.
+// Two layouts. Every variant but the carcass has both; the carcass only
+// the first.
 //
 // One block (probe_loop_kernel<V>): one block of 512 threads holds the
 // whole (8, 640) state, as one TPU program held it. Thread t owns lanes
 // [10c, 10c+10) of row g = t / 64 (c = t % 64), so each row is two warps
 // and each thread carries 8 rows x 10 lanes in registers (80 floats; 128
-// registers a thread at 512 threads). The DP-like body (the tool's `math`)
-// is body_lanes:
+// registers a thread at 512 threads, so most instances spill). The
+// DP-like body (the tool's `math`) is body_lanes:
 // - pltpu.roll(x, 1, 1), a shift by one lane, moves values within a
 //   thread's registers, across its warp by __shfl_up_sync, and across the
 //   row's warps through shared memory;
@@ -36,19 +36,29 @@
 // meet the previous body's reads. max is NaN-propagating (jnp.maximum).
 // body/scratch keeps its rows in a (64, 640) shared-memory scratch (the
 // VMEM scratch) and reads it before writing it: the TPU's result is
-// undefined and JAX's interpreter fills scratch with NaN, so this kernel
-// fills it with NaN too.
+// undefined and JAX's interpreter fills float scratch with NaN, so this
+// kernel fills it with NaN too (with the offset: body/carried's start).
+// deadcode's (8, 2048) int8 scratch is filled with -128 before the loop,
+// the value JAX's interpreter gives uninitialised int8 scratch (its
+// integer minimum), so live walks read defined values (before, the
+// one-block instance left it uninitialised).
 //
-// Cluster (probe_cluster_kernel<V>, the five variants above): one cluster
-// of 8 CTAs, CTA g (its rank in the cluster) holding group row g, the
-// 640 lanes of all 8 carried arrays. Rows meet only where the program
-// combines them, so the state splits by row with no traffic inside a
-// body: CT = 320 threads a CTA (10 warps), CL = 2 lanes a thread, 16
-// floats of state a thread, no spill (of 128, 160, 320 and 640 threads,
-// 320 was the fastest in every variant on the H100; PERF.md).
-// The roll and the row maximum stay inside the CTA (shuffles, then the
-// warp-boundary lanes and the warp partials through shared memory,
-// double-buffered by body parity as in one block). Where rows meet:
+// Cluster (probe_cluster_kernel<V>, the default of every variant that has
+// it): one cluster of 8 CTAs, CTA g (its rank in the cluster) holding
+// group row g, the 640 lanes of all 8 carried arrays. Rows meet only
+// where the program combines them, so the state splits by row with no
+// traffic inside a body: CT = 320 threads a CTA (10 warps), CL = 2 lanes
+// a thread, 16 floats of state a thread, no spill (of 128, 160, 320 and
+// 640 threads, 320 was the fastest in every variant on the H100;
+// PERF.md). The roll and the row maximum stay inside the CTA (shuffles,
+// then the warp-boundary lanes and the warp partials through shared
+// memory, double-buffered by body parity as in one block). What each
+// instance exchanges:
+// - body/carried and nested: nothing; the rows never meet. body/carried
+//   is the bare split step: the body and one CTA barrier a body.
+// - body/scratch: nothing; CTA g keeps its (8, 640) slice of the scratch
+//   (row i of group row g, 20 KB) in the dynamic shared memory that the
+//   reserve below asks for, read before and written after every body.
 // - scalar0d/body and /both: every body's 0-d reductions over all 8 row
 //   maxima feed `org`, which the next body reads. After the CTA barrier
 //   that completes the row maximum, thread k stores it into a parity slot
@@ -65,9 +75,11 @@
 //   exchange's cost a step is the figure the probe is for.
 // - scalar0d/cond: `run` and `cnt` do not depend on the data; every CTA
 //   carries all eight, with no exchange.
-// - nested+walk: at each of the two tile ends the dead walks start from
-//   the maximum of all 8 row maxima: one push of the CTA's row maximum to
-//   every CTA and one cluster barrier a tile. nested: no exchange.
+// - deadcode (after its loop) and nested+walk (at each of its two tile
+//   ends): the walks start from the maximum of all 8 row maxima, so each
+//   CTA pushes its row maximum into every CTA and waits at one cluster
+//   barrier. Every CTA holds the whole int8 scratch (16 KB, static) and
+//   runs all 8 walks, the same dead code in scope as one block.
 // A cluster barrier at entry (every CTA has started, and its mbarriers
 // are initialised, before a peer writes its shared memory) and one at
 // exit (none leaves while a peer may still write it). Each CTA reserves
@@ -80,25 +92,29 @@
 // operations per element per step; it reads nothing and writes 20 KB
 // once, so bytes do not bound it. The per-step bound on the card (the
 // operations over the f32 peak of all 132 SMs) is ~130x under what one
-// SM can issue, which is the point of the probe: one block measures the
+// SM can issue, and the program is one dependent chain, so no instance
+// comes near it; that is the point of the probe: one block measures the
 // floor of one block's step, the structure of the TALCO kernel's
 // per-diagonal step (talco_xdrop.cu, one block per pair); the cluster
 // measures what 8 SMs buy a step and what an exchange of the row maxima
 // through distributed shared memory costs one, the two figures that
 // splitting one pair's band over a cluster is planned from.
 //
-// The offset (a launch argument; 0 runs the JAX tool's program): the five
-// variants above, in both layouts, start their carried rows at
-// base + g * 2^-7 + x * 2^-12 (group row g, lane x; exact in f32), as
-// their plain versions do with offset=True. The tool's state is the same
-// in every row and lane, so a value rolled from the wrong lane or a row
-// maximum sent to the wrong CTA or slot would not change its result;
-// with the offset it does.
+// The offset (a launch argument; 0 runs the JAX tool's program): every
+// variant but the carcass, in both layouts, starts its carried rows (and
+// body/scratch its scratch) at base + g * 2^-7 + x * 2^-12 (group row g,
+// lane x; exact in f32), as its plain version does with offset=True. The
+// tool's state is the same in every row and lane, so a value rolled from
+// the wrong lane or a row maximum sent to the wrong CTA or slot would not
+// change its result; with the offset it does.
 //
 // Dead code stays in scope: the walks of deadcode and nested+walk start
-// at min(max(msp), walk_floor), with walk_floor a launch argument (-1), so
-// nvcc cannot prove them dead; the carcass keeps its 20 carried int
-// columns live through a test against walk_floor that never holds.
+// at done = min(int(max(msp)), walk_floor), with walk_floor a launch
+// argument (-1, so they run no step), so nvcc cannot prove them dead; the
+// carcass keeps its 20 carried int columns live through a test against
+// walk_floor that never holds. With walk_floor above the row maxima (and
+// the offset, which makes those differ by row) the walks run, and a CTA
+// that started them from its own row maximum would emit another count.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -296,8 +312,9 @@ __device__ __forceinline__ void dp_body(Shared& sh, float (&r)[NROW][LPT],
         msp[g] = jmax(msp[g], jmax(sh.part[par][2 * g], sh.part[par][2 * g + 1]));
 }
 
-// The zero-trip traceback walks of deadcode (over the int8 scratch) and
-// nested+walk (no scratch): GRP walks from done < 0; returns their steps.
+// The traceback walks of deadcode (over the int8 scratch) and nested+walk
+// (no scratch), stepping as the JAX tool's wstep: GRP walks from `done`;
+// returns their steps (0 when done < 0, as at walk_floor = -1).
 template <bool Tbs>
 __device__ __noinline__ int dead_walks(const int8_t* tbs, int done) {
     int emit = 0;
@@ -326,6 +343,28 @@ __device__ __noinline__ int dead_walks(const int8_t* tbs, int done) {
     return emit;
 }
 
+// deadcode's int8 scratch, before the loop: -128 everywhere, the value
+// the JAX interpreter gives uninitialised int8 scratch (module doc), by
+// the block's nthreads threads in 32-bit words; the barrier before the
+// loop publishes it
+__device__ __forceinline__ void fill_tbs(int8_t* tbs, int tid, int nthreads) {
+    int* w = reinterpret_cast<int*>(tbs);
+    for (int i = tid; i < GRP * TBW / 4; i += nthreads) w[i] = (int)0x80808080;
+}
+
+// deadcode's merge into row 0 of the scratch, under a condition that
+// never holds
+__device__ __forceinline__ void dead_merge(int8_t* tbs, int emit, int tid,
+                                           int nthreads) {
+    if (emit > 1000000000) {
+        for (int c = 0; c < 8; ++c) {
+            const int c0 = (min(c * 128, TBW - 128) / 128) * 128;
+            for (int l = tid; l < 128; l += nthreads)
+                tbs[c0 + l] = (l < emit) ? (int8_t)1 : tbs[c0 + l];
+        }
+    }
+}
+
 __device__ __forceinline__ int max_msp_i32(const float (&msp)[GRP]) {
     float m = msp[0];
 #pragma unroll
@@ -339,7 +378,7 @@ probe_loop_kernel(int trips, int walk_floor, int offset,
                   float* __restrict__ out) {
     extern __shared__ __align__(16) float scratch[];   // body/scratch only
     __shared__ Shared sh;
-    __shared__ int8_t tbs[(V == V_DEADCODE) ? GRP * TBW : 1];
+    __shared__ __align__(4) int8_t tbs[(V == V_DEADCODE) ? GRP * TBW : 1];
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
@@ -394,21 +433,19 @@ probe_loop_kernel(int trips, int walk_floor, int offset,
         float msp[GRP];
         int org = 0;
         int par = 0;
+        if constexpr (V == V_DEADCODE) fill_tbs(tbs, tid, NT);
         for (int t = 0; t < kTiles; ++t) {
 #pragma unroll
             for (int i = 0; i < NROW; ++i)
 #pragma unroll
                 for (int j = 0; j < LPT; ++j) {
                     if constexpr (kScratch)
-                        r[i][j] = qnan();
+                        r[i][j] = offset ? (float)i + 1.0f : qnan();
                     else if constexpr (kTiles == 2)
                         r[i][j] = acc[j] * (float)0.001 + (float)(i + 1.0);
                     else
                         r[i][j] = (float)i + 1.0f;
-                    if constexpr (kBias || kTiles == 2) {
-                        if (offset)
-                            r[i][j] = r[i][j] + init_offset(g0, x0 + j);
-                    }
+                    if (offset) r[i][j] = r[i][j] + init_offset(g0, x0 + j);
                 }
             if constexpr (kScratch) {
 #pragma unroll
@@ -454,16 +491,7 @@ probe_loop_kernel(int trips, int walk_floor, int offset,
                 const int done = min(max_msp_i32(msp), walk_floor);
                 emit = dead_walks<V == V_DEADCODE>(tbs, done);
             }
-            if constexpr (V == V_DEADCODE) {
-                // the merge, under a condition that never holds
-                if (emit > 1000000000) {
-                    for (int c = 0; c < 8; ++c) {
-                        const int c0 = (min(c * 128, TBW - 128) / 128) * 128;
-                        for (int l = tid; l < 128; l += NT)
-                            tbs[c0 + l] = (l < emit) ? (int8_t)1 : tbs[c0 + l];
-                    }
-                }
-            }
+            if constexpr (V == V_DEADCODE) dead_merge(tbs, emit, tid, NT);
 #pragma unroll
             for (int j = 0; j < LPT; ++j) {
                 float v = r[0][j] + msp[g0];
@@ -557,7 +585,8 @@ struct ClusterShared {
     float part[2][CW];        // this CTA's warp maxima of s, by body parity
     float rows[2][GRP];       // scalar0d/body, /both: every CTA's row maximum
                               // of the body, by parity (stored by each CTA)
-    float tile[2][GRP];       // nested+walk: every CTA's msp at tile t's end
+    float tile[2][GRP];       // deadcode, nested+walk: every CTA's msp at
+                              // tile t's end
     uint64_t full[2];         // st.async exchange: rows[p] holds all 8
 };
 
@@ -568,24 +597,28 @@ __device__ __forceinline__ float row_max(const float (&part)[CW]) {
     return m;
 }
 
-// The five variants that combine rows (module doc): CTA g of the cluster
+// Every variant but the carcass (module doc): CTA g of the cluster
 // computes group row g. Launched only as one cluster of NCTA CTAs
-// (cluster_config).
+// (cluster_config), whose dynamic shared memory (the reserve) holds
+// body/scratch's slice of the scratch.
 template <int V>
 __global__ void __launch_bounds__(CT)
 probe_cluster_kernel(int trips, int walk_floor, int offset,
                      float* __restrict__ out) {
-    static_assert(V == V_S0D_COND || V == V_S0D_BODY || V == V_S0D_BOTH
-                  || V == V_NESTED || V == V_NESTED_WALK, "no cluster instance");
+    static_assert(V != V_CARCASS && V < N_VARIANTS, "no cluster instance");
+    constexpr bool kScratch = V == V_BODY_SCRATCH;
     constexpr bool kBias = V == V_S0D_COND || V == V_S0D_BODY
         || V == V_S0D_BOTH;
     constexpr bool kOrg = V == V_S0D_BODY || V == V_S0D_BOTH;   // exchange a body
     constexpr bool kCond = V == V_S0D_COND || V == V_S0D_BOTH;
-    constexpr bool kWalk = V == V_NESTED_WALK;                 // exchange a tile
+    constexpr bool kTbs = V == V_DEADCODE;
+    constexpr bool kWalk = kTbs || V == V_NESTED_WALK;          // exchange a tile
     constexpr int kTiles = (V == V_NESTED || V == V_NESTED_WALK) ? 2 : 1;
     constexpr int kRows = kOrg ? GRP : 1;    // row maxima a thread holds
     constexpr bool kAsync = PROBE_CLUSTER_EXCHANGE == 0;
+    extern __shared__ __align__(16) float slice[];   // row i at i * W
     __shared__ ClusterShared sh;
+    __shared__ __align__(4) int8_t tbs[kTbs ? GRP * TBW : 1];
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
@@ -594,6 +627,7 @@ probe_cluster_kernel(int trips, int walk_floor, int offset,
     // the warp whose last lane rolls into this warp's first (warp 0 takes
     // the row's last lane: the roll wraps around)
     const int pw = (warp + CW - 1) % CW;
+    float* srow = slice + x0;
     float r[NROW][CL];
     float acc[CL];
 #pragma unroll
@@ -608,15 +642,21 @@ probe_cluster_kernel(int trips, int walk_floor, int offset,
             bar_init(&sh.full[1]);
         }
     }
+    if constexpr (kTbs) fill_tbs(tbs, tid, CT);
     cluster_sync();                          // every CTA has started
     for (int t = 0; t < kTiles; ++t) {
 #pragma unroll
         for (int i = 0; i < NROW; ++i)
 #pragma unroll
             for (int j = 0; j < CL; ++j) {
-                r[i][j] = (kTiles == 2) ? acc[j] * (float)0.001 + (float)(i + 1.0)
-                                        : (float)i + 1.0f;
+                if constexpr (kScratch)
+                    r[i][j] = offset ? (float)i + 1.0f : qnan();
+                else if constexpr (kTiles == 2)
+                    r[i][j] = acc[j] * (float)0.001 + (float)(i + 1.0);
+                else
+                    r[i][j] = (float)i + 1.0f;
                 if (offset) r[i][j] = r[i][j] + init_offset(g0, x0 + j);
+                if constexpr (kScratch) srow[i * W + j] = r[i][j];
             }
 #pragma unroll
         for (int g = 0; g < kRows; ++g) msp[g] = -1e3f;
@@ -629,8 +669,20 @@ probe_cluster_kernel(int trips, int walk_floor, int offset,
         while (keep_going<kCond>(run, k, trips)) {
 #pragma unroll
             for (int b = 0; b < 2; ++b) {
+                if constexpr (kScratch) {
+#pragma unroll
+                    for (int i = 0; i < NROW; ++i)
+#pragma unroll
+                        for (int j = 0; j < CL; ++j) r[i][j] = srow[i * W + j];
+                }
                 const float tmax = row_body<CL, kBias>(sh.bnd[par], r, pw,
                                                        lane, x0, org);
+                if constexpr (kScratch) {
+#pragma unroll
+                    for (int i = 0; i < NROW; ++i)
+#pragma unroll
+                        for (int j = 0; j < CL; ++j) srow[i * W + j] = r[i][j];
+                }
                 if (lane == 0) sh.part[par][warp] = tmax;
                 put_boundary(sh.bnd[par ^ 1], r, warp, lane);
                 __syncthreads();
@@ -668,19 +720,22 @@ probe_cluster_kernel(int trips, int walk_floor, int offset,
         }
         int emit = 0;
         if constexpr (kWalk) {
+            // the walks start from the maximum of all 8 row maxima: one
+            // push of this row's into every CTA, one cluster barrier
             if (tid < NCTA) store_to(&sh.tile[t][g0], tid, mine);
             cluster_sync();
             float all[GRP];
 #pragma unroll
             for (int g = 0; g < GRP; ++g) all[g] = sh.tile[t][g];
             const int done = min(max_msp_i32(all), walk_floor);
-            emit = dead_walks<false>(nullptr, done);
+            emit = dead_walks<kTbs>(tbs, done);
         }
+        if constexpr (kTbs) dead_merge(tbs, emit, tid, CT);
 #pragma unroll
         for (int j = 0; j < CL; ++j) {
             float v = r[0][j] + mine;
             if constexpr (kBias) v = v + (float)org;
-            if constexpr (kTiles == 2) v = v + (float)emit;
+            if constexpr (kWalk || kTiles == 2) v = v + (float)emit;
             acc[j] = v;
         }
     }
@@ -749,24 +804,26 @@ extern "C" {
 
 // Launches probe `variant` (ops/probe_loop.py KERNEL_ID) for `trips` loop
 // steps into out (f32 [8, 640]) on `stream`, as one block or (cluster !=
-// 0; scalar0d and nested only) one cluster of 8 CTAs, with the initial
-// state's offset when offset != 0 (scalar0d and nested only); returns the
-// launch's error (cudaSuccess = 0; a refused cluster launch is an error,
-// never a one-block launch). Does not synchronise.
+// 0; every variant but the carcass) one cluster of 8 CTAs, with the
+// initial state's offset when offset != 0 (every variant but the
+// carcass); returns the launch's error (cudaSuccess = 0; a refused
+// cluster launch is an error, never a one-block launch). Does not
+// synchronise.
 cudaError_t probe_loop_launch(int variant, int cluster, int trips,
                               int walk_floor, int offset, void* out,
                               void* stream) {
     float* o = static_cast<float*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (trips < 0 || out == nullptr) return cudaErrorInvalidValue;
-    if (offset && (variant < V_S0D_COND || variant > V_S0D_BOTH)
-        && variant != V_NESTED && variant != V_NESTED_WALK)
-        return cudaErrorInvalidValue;
+    if (offset && variant == V_CARCASS) return cudaErrorInvalidValue;
     if (cluster) {
         switch (variant) {
+            case V_BODY_CARRIED: return launch_cluster<V_BODY_CARRIED>(trips, walk_floor, offset, o, s);
+            case V_BODY_SCRATCH: return launch_cluster<V_BODY_SCRATCH>(trips, walk_floor, offset, o, s);
             case V_S0D_COND: return launch_cluster<V_S0D_COND>(trips, walk_floor, offset, o, s);
             case V_S0D_BODY: return launch_cluster<V_S0D_BODY>(trips, walk_floor, offset, o, s);
             case V_S0D_BOTH: return launch_cluster<V_S0D_BOTH>(trips, walk_floor, offset, o, s);
+            case V_DEADCODE: return launch_cluster<V_DEADCODE>(trips, walk_floor, offset, o, s);
             case V_NESTED: return launch_cluster<V_NESTED>(trips, walk_floor, offset, o, s);
             case V_NESTED_WALK: return launch_cluster<V_NESTED_WALK>(trips, walk_floor, offset, o, s);
             default: return cudaErrorInvalidValue;
@@ -798,12 +855,18 @@ cudaError_t probe_loop_attributes(int variant, int cluster, int* out) {
     cudaError_t e = cudaSuccess;
     if (cluster) {
         switch (variant) {
+            case V_BODY_CARRIED: fn = (const void*)probe_cluster_kernel<V_BODY_CARRIED>;
+                e = cluster_config<V_BODY_CARRIED>(&cfg, &at, 0); break;
+            case V_BODY_SCRATCH: fn = (const void*)probe_cluster_kernel<V_BODY_SCRATCH>;
+                e = cluster_config<V_BODY_SCRATCH>(&cfg, &at, 0); break;
             case V_S0D_COND: fn = (const void*)probe_cluster_kernel<V_S0D_COND>;
                 e = cluster_config<V_S0D_COND>(&cfg, &at, 0); break;
             case V_S0D_BODY: fn = (const void*)probe_cluster_kernel<V_S0D_BODY>;
                 e = cluster_config<V_S0D_BODY>(&cfg, &at, 0); break;
             case V_S0D_BOTH: fn = (const void*)probe_cluster_kernel<V_S0D_BOTH>;
                 e = cluster_config<V_S0D_BOTH>(&cfg, &at, 0); break;
+            case V_DEADCODE: fn = (const void*)probe_cluster_kernel<V_DEADCODE>;
+                e = cluster_config<V_DEADCODE>(&cfg, &at, 0); break;
             case V_NESTED: fn = (const void*)probe_cluster_kernel<V_NESTED>;
                 e = cluster_config<V_NESTED>(&cfg, &at, 0); break;
             case V_NESTED_WALK: fn = (const void*)probe_cluster_kernel<V_NESTED_WALK>;

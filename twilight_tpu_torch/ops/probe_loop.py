@@ -21,25 +21,35 @@ DP-like anti-diagonal body in one program. Each computes a (GRP, W) =
 
 The kernels are `csrc/probe_loop_costs.cu` (module doc there), in two
 layouts. `block`: one block holds the whole (8, 640) state, as one TPU
-program did. `cluster` (scalar0d's and nested's five variants, their
-default): one cluster of 8 CTAs, CTA g holding group row g, the rows
-meeting only where the program combines them, through distributed
-shared memory: scalar0d/body and /both every body (st.async stores that
-complete the receiving CTA's mbarrier), nested+walk at each tile's end
-(a cluster barrier). A wrapper given a CPU tensor runs the plain
-version of its layout's kernel (`cluster`: the row-split plain version,
-`split=True`, bit-equal to the whole-state one); given a CUDA tensor it
-launches the kernel on the current stream, or raises: a refused cluster
-launch never falls back to one block.
+program did. `cluster` (every variant but the carcass, their default):
+one cluster of 8 CTAs, CTA g holding group row g, the rows meeting only
+where the program combines them, through distributed shared memory:
+scalar0d/body and /both every body (st.async stores that complete the
+receiving CTA's mbarrier), deadcode after its loop and nested+walk at
+each tile's end (a cluster barrier); body, scalar0d/cond and nested
+exchange nothing. A wrapper given a CPU tensor runs the variant's one
+plain version, whatever the layout; given a CUDA tensor it launches the
+kernel on the current stream, or raises: a refused cluster launch never
+falls back to one block.
 
-`offset=True` (scalar0d and nested, either layout and the plain versions)
-starts the carried rows at base + g * 2^-7 + x * 2^-12 (group row g, lane
-x): the tool's state is the same in every row and lane, and the offset
-makes a value routed to the wrong lane, CTA or slot change the result.
+`offset=True` (every variant but the carcass, either layout and the
+plain versions) starts the carried rows (body/scratch: its scratch) at
+base + g * 2^-7 + x * 2^-12 (group row g, lane x): the tool's state is
+the same in every row and lane, and the offset makes a value routed to
+the wrong lane, CTA or slot change the result.
+
+`walk_floor` (deadcode and nested): the walks start at done =
+min(int(max(msp)), walk_floor). The tool's WALK_FLOOR keeps them dead;
+above the row maxima they run, and with the offset (row maxima that
+differ by row) a walk started from one row's maximum instead of all 8's
+changes the result.
 
 `body/scratch` reads its scratch before it writes it: on the TPU the
-result is undefined, and the JAX interpreter fills scratch with NaN. The
-kernel and the plain version fill it with NaN too, so all three agree.
+result is undefined, and the JAX interpreter fills float scratch with
+NaN. The kernel and the plain version fill it with NaN too, so all three
+agree (with the offset: body/carried's start, so its result is finite).
+deadcode's int8 scratch starts at TBS_FILL, the interpreter's value for
+uninitialised int8 scratch, in the kernel and the plain version alike.
 """
 from __future__ import annotations
 
@@ -54,6 +64,8 @@ INT32_MAX = (1 << 31) - 1
 # kernel takes it as an argument, so that nvcc cannot drop the dead code
 # that the probe keeps in scope.
 WALK_FLOOR = -1
+TBW = 2048                      # deadcode's int8 scratch: (GRP, TBW)
+TBS_FILL = -128                 # its start (the int8 minimum)
 
 # kernel ids of probe_loop_launch (csrc/probe_loop_costs.cu)
 KERNEL_ID = {"carcass": 0, "body/carried": 1, "body/scratch": 2,
@@ -62,13 +74,17 @@ KERNEL_ID = {"carcass": 0, "body/carried": 1, "body/scratch": 2,
 BODY_VARIANTS = ("carried", "scratch")
 SCALAR0D_VARIANTS = ("cond", "body", "both")
 LAYOUTS = ("cluster", "block")
-# the variants with a cluster instance (their default layout)
-CLUSTER_VARIANTS = ("scalar0d/cond", "scalar0d/body", "scalar0d/both",
-                    "nested", "nested+walk")
+# the variants with a cluster instance (their default layout), which
+# also take the offset: all but the carcass
+CLUSTER_VARIANTS = ("body/carried", "body/scratch", "scalar0d/cond",
+                    "scalar0d/body", "scalar0d/both", "deadcode", "nested",
+                    "nested+walk")
+# the variants whose walks start at walk_floor
+WALK_VARIANTS = ("deadcode", "nested+walk")
 
 
 def default_layout(name: str) -> str:
-    """`cluster` for the five variants that have it, else `block`."""
+    """`cluster` for the variants that have it, else `block`."""
     return "cluster" if name in CLUSTER_VARIANTS else "block"
 
 
@@ -104,12 +120,13 @@ def _layout(name: str, layout: str) -> bool:
 
 
 def _launch(kind: str, trips: int, out: torch.Tensor,
-            cluster: bool = False, offset: bool = False) -> None:
+            cluster: bool = False, offset: bool = False,
+            walk_floor: int = WALK_FLOOR) -> None:
     from . import build
     lib = build.load()
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = lib.probe_loop_launch(KERNEL_ID[kind], int(cluster), trips,
-                               WALK_FLOOR, int(offset),
+                               walk_floor, int(offset),
                                ctypes.c_void_p(out.data_ptr()),
                                ctypes.c_void_p(stream))
     if rc != 0:
@@ -129,15 +146,19 @@ def carcass(trips: int, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def body(variant: str, trips: int, out: torch.Tensor) -> torch.Tensor:
-    """K7, variant `carried` or `scratch`, into `out`."""
+def body(variant: str, trips: int, out: torch.Tensor,
+         layout: str = "cluster", offset: bool = False) -> torch.Tensor:
+    """K7, variant `carried` or `scratch`, into `out`, as one cluster of
+    8 CTAs or (layout `block`) one block; `offset`: module doc."""
     if variant not in BODY_VARIANTS:
         raise ValueError(f"body variant must be one of {BODY_VARIANTS}")
+    cluster = _layout(f"body/{variant}", layout)
     _check(out, trips)
     if out.device.type == "cpu":
-        return out.copy_(body_reference(variant, trips))
-    _launch(f"body/{variant}", trips, out)
+        return out.copy_(body_reference(variant, trips, offset=offset))
+    _launch(f"body/{variant}", trips, out, cluster, offset)
     body.launches += 1
+    body.cluster_launches += cluster
     return out
 
 
@@ -151,42 +172,49 @@ def scalar0d(variant: str, trips: int, out: torch.Tensor,
     cluster = _layout(f"scalar0d/{variant}", layout)
     _check(out, trips)
     if out.device.type == "cpu":
-        return out.copy_(scalar0d_reference(variant, trips, split=cluster,
-                                            offset=offset))
+        return out.copy_(scalar0d_reference(variant, trips, offset=offset))
     _launch(f"scalar0d/{variant}", trips, out, cluster, offset)
     scalar0d.launches += 1
     scalar0d.cluster_launches += cluster
     return out
 
 
-def deadcode(trips: int, out: torch.Tensor) -> torch.Tensor:
-    """K9 into `out`."""
+def deadcode(trips: int, out: torch.Tensor, layout: str = "cluster",
+             offset: bool = False,
+             walk_floor: int = WALK_FLOOR) -> torch.Tensor:
+    """K9 into `out`, as one cluster of 8 CTAs or (layout `block`) one
+    block; `offset` and `walk_floor`: module doc."""
+    cluster = _layout("deadcode", layout)
     _check(out, trips)
     if out.device.type == "cpu":
-        return out.copy_(deadcode_reference(trips))
-    _launch("deadcode", trips, out)
+        return out.copy_(deadcode_reference(trips, offset=offset,
+                                            walk_floor=walk_floor))
+    _launch("deadcode", trips, out, cluster, offset, walk_floor)
     deadcode.launches += 1
+    deadcode.cluster_launches += cluster
     return out
 
 
 def nested(with_walk: bool, trips: int, out: torch.Tensor,
-           layout: str = "cluster", offset: bool = False) -> torch.Tensor:
+           layout: str = "cluster", offset: bool = False,
+           walk_floor: int = WALK_FLOOR) -> torch.Tensor:
     """K10 (with or without the dead walks) into `out`, as one cluster of
-    8 CTAs or (layout `block`) one block; `offset`: module doc."""
+    8 CTAs or (layout `block`) one block; `offset` and `walk_floor`:
+    module doc."""
     name = "nested+walk" if with_walk else "nested"
     cluster = _layout(name, layout)
     _check(out, trips)
     if out.device.type == "cpu":
-        return out.copy_(nested_reference(with_walk, trips, split=cluster,
-                                          offset=offset))
-    _launch(name, trips, out, cluster, offset)
+        return out.copy_(nested_reference(with_walk, trips, offset=offset,
+                                          walk_floor=walk_floor))
+    _launch(name, trips, out, cluster, offset, walk_floor)
     nested.launches += 1
     nested.cluster_launches += cluster
     return out
 
 
 # launches: every launch of the wrapper; cluster_launches: those of its
-# cluster instances (scalar0d and nested only)
+# cluster instances
 WRAPPERS = (carcass, body, scalar0d, deadcode, nested)
 
 
@@ -199,25 +227,32 @@ reset_launches()
 
 
 def run(name: str, trips: int, out: torch.Tensor, layout: str = None,
-        offset: bool = False) -> torch.Tensor:
+        offset: bool = False, walk_floor: int = WALK_FLOOR) -> torch.Tensor:
     """One of the nine variants by its name in KERNEL_ID, in `layout`
-    (default: default_layout(name)); `offset` for CLUSTER_VARIANTS only."""
+    (default: default_layout(name)); `offset` for CLUSTER_VARIANTS only,
+    `walk_floor` for deadcode and nested only."""
     if name not in KERNEL_ID:
         raise ValueError(f"unknown probe {name!r}")
     layout = layout or default_layout(name)
-    if name in CLUSTER_VARIANTS:
-        if name.startswith("nested"):
-            return nested(name == "nested+walk", trips, out, layout, offset)
-        return scalar0d(name.partition("/")[2], trips, out, layout, offset)
-    _layout(name, layout)
-    if offset:
-        raise ValueError(f"{name} takes no offset (those that do are "
-                         f"{CLUSTER_VARIANTS})")
+    family, _, variant = name.partition("/")
+    if walk_floor != WALK_FLOOR and family not in ("deadcode", "nested",
+                                                   "nested+walk"):
+        raise ValueError(f"{name} takes no walk_floor (those that do are "
+                         "deadcode and nested)")
     if name == "carcass":
+        _layout(name, layout)
+        if offset:
+            raise ValueError(f"{name} takes no offset (those that do are "
+                             f"{CLUSTER_VARIANTS})")
         return carcass(trips, out)
-    if name == "deadcode":
-        return deadcode(trips, out)
-    return body(name.partition("/")[2], trips, out)
+    if family == "body":
+        return body(variant, trips, out, layout, offset)
+    if family == "scalar0d":
+        return scalar0d(variant, trips, out, layout, offset)
+    if family == "deadcode":
+        return deadcode(trips, out, layout, offset, walk_floor)
+    return nested(name == "nested+walk", trips, out, layout, offset,
+                  walk_floor)
 
 
 def attributes(name: str, layout: str = None) -> dict:
@@ -282,28 +317,22 @@ def _math(r, msp):
             diag + i_v * 0.01], _max(msp, mx)
 
 
-def _rows(device, fill=None, n=GRP):
-    return [torch.full((n, W), float(i) + 1.0 if fill is None else fill,
+def _rows(device, fill=None):
+    return [torch.full((GRP, W), float(i) + 1.0 if fill is None else fill,
                        dtype=torch.float32, device=device)
             for i in range(N_ROWS)]
 
 
-def _msp0(device, n=GRP):
-    return torch.full((n, 1), -1e3, dtype=torch.float32, device=device)
+def _msp0(device):
+    return torch.full((GRP, 1), -1e3, dtype=torch.float32, device=device)
 
 
-def _offset(device, g0: int, n: int) -> torch.Tensor:
-    """The initial state's offset of group rows g0..g0+n-1 (module doc):
-    g * 2^-7 + x * 2^-12, exact in f32."""
-    g = torch.arange(g0, g0 + n, dtype=torch.float32, device=device)
+def _offset(device) -> torch.Tensor:
+    """The initial state's offset (module doc): g * 2^-7 + x * 2^-12 at
+    group row g, lane x, exact in f32."""
+    g = torch.arange(GRP, dtype=torch.float32, device=device)
     x = torch.arange(W, dtype=torch.float32, device=device)
     return g[:, None] * 2.0 ** -7 + x * 2.0 ** -12
-
-
-def _parts(split: bool) -> int:
-    """Group rows a state holds: 1 when the program runs split by row,
-    as the cluster kernel's CTAs run it, else all GRP in one state."""
-    return 1 if split else GRP
 
 
 def carcass_reference(trips: int, device="cpu") -> torch.Tensor:
@@ -326,10 +355,22 @@ def _carried_loop(rows, msp, trips):
     return rows, msp
 
 
-def body_reference(variant: str, trips: int, device="cpu") -> torch.Tensor:
-    # `scratch` starts from the NaN-filled scratch (module doc)
-    rows = _rows(device, None if variant == "carried" else float("nan"))
-    rows, msp = _carried_loop(rows, _msp0(device), trips)
+def _start(device, offset: bool, fill=None):
+    """The carried rows' start: base (i + 1, or `fill`) in every lane,
+    plus the offset (module doc) when asked for."""
+    rows = _rows(device, fill)
+    if offset:
+        rows = [r + _offset(device) for r in rows]
+    return rows
+
+
+def body_reference(variant: str, trips: int, device="cpu",
+                   offset: bool = False) -> torch.Tensor:
+    # `scratch` starts from the NaN-filled scratch, or with the offset
+    # from `carried`'s start (module doc)
+    fill = None if variant == "carried" or offset else float("nan")
+    rows, msp = _carried_loop(_start(device, offset, fill), _msp0(device),
+                              trips)
     return rows[0] + msp
 
 
@@ -349,19 +390,10 @@ def _next_org(org: int, msp: torch.Tensor) -> int:
 
 
 def scalar0d_reference(variant: str, trips: int, device="cpu",
-                       split: bool = False,
                        offset: bool = False) -> torch.Tensor:
-    """`split`: each group row its own (1, W) state, the rows meeting only
-    in `body`'s and `both`'s 0-d reductions after every body (the cluster
-    kernel's exchange); the loop condition's `run` and `cnt` do not depend
-    on the data, so every state sees the same. `offset`: module doc."""
-    n = _parts(split)
+    """`offset`: module doc."""
     lane_w = torch.arange(W, dtype=torch.int32, device=device)
-    states = [[_rows(device, n=n), _msp0(device, n)]
-              for _ in range(GRP // n)]
-    if offset:
-        for s, st in enumerate(states):
-            st[0] = [r + _offset(device, s * n, n) for r in st[0]]
+    rows, msp = _start(device, offset), _msp0(device)
     org = 0
     run = torch.ones((GRP, 1), dtype=torch.int32, device=device)
     cnt = torch.zeros((GRP, 1), dtype=torch.int32, device=device)
@@ -376,79 +408,88 @@ def scalar0d_reference(variant: str, trips: int, device="cpu",
             x_rel = lane_w - org % W
             bias = torch.where(x_rel < 0, torch.tensor(0.0, device=device),
                                torch.tensor(1e-30, device=device))
-            for st in states:
-                rows = st[0]
-                st[0], st[1] = _math([rows[0] + bias] + rows[1:], st[1])
+            rows, msp = _math([rows[0] + bias] + rows[1:], msp)
             k += 1
             if variant in ("body", "both"):
-                org = _next_org(org, torch.cat([st[1] for st in states]))
+                org = _next_org(org, msp)
             run = (cnt + 1 < trips).to(torch.int32)
             cnt = cnt + 1
-    return torch.cat([st[0][0] + st[1] for st in states]) + float(org)
+    return rows[0] + msp + float(org)
 
 
-def _dead_walks(msp: torch.Tensor) -> int:
-    """Steps of the GRP traceback walks: each starts at done =
-    min(int(max(msp)), WALK_FLOOR) < 0 and runs while done >= 0, so none
-    runs and their emit is 0 (as is the merge that fires above 1e9)."""
-    done = min(int(_to_int32(msp.max())), WALK_FLOOR)
-    assert done < 0
-    return 0
+def _dead_walks(msp: torch.Tensor, walk_floor: int, scratch: bool):
+    """Steps of the GRP traceback walks, each from done =
+    min(int(max(msp)), walk_floor) while done >= 0, stepping as the JAX
+    tool's wstep: deadcode's (`scratch`) reads its int8 scratch, all
+    TBS_FILL, at idx % 128 of the 128-lane block at idx; nested+walk's
+    sums a one-hot over 128 lanes, which is 1. At WALK_FLOOR none runs
+    and their emit is 0 (as is the merge, which fires above 1e9)."""
+    done = min(int(_to_int32(msp.max())), walk_floor)
+    tbs = [[TBS_FILL] * TBW for _ in range(GRP)] if scratch else None
+    emit = 0
+    for g in range(GRP):
+        ftr, idx, n = done, 5, 0
+        while ftr >= 0:
+            if scratch:
+                base = min((min(max(idx, 0), 1 << 20) // 128) * 128,
+                           TBW - 128)
+                v = tbs[g][base + idx % 128]
+                ftr, idx = ftr - 1 - (v & 1), idx - (v & 2) // 2
+            else:
+                v = 1
+                ftr, idx = ftr - 1 - (v & 1), idx - 1
+            n += 1
+        emit += n
+    return emit
 
 
-def deadcode_reference(trips: int, device="cpu") -> torch.Tensor:
-    rows, msp = _carried_loop(_rows(device), _msp0(device), trips)
-    return rows[0] + msp + float(_dead_walks(msp))
+def deadcode_reference(trips: int, device="cpu", offset: bool = False,
+                       walk_floor: int = WALK_FLOOR,
+                       emits: list = None) -> torch.Tensor:
+    """`offset` and `walk_floor`: module doc; `emits`, if given, receives
+    the walks' emit."""
+    rows, msp = _carried_loop(_start(device, offset), _msp0(device), trips)
+    emit = _dead_walks(msp, walk_floor, True)
+    if emits is not None:
+        emits.append(emit)
+    return rows[0] + msp + emit
 
 
 def nested_reference(with_walk: bool, trips: int, device="cpu",
-                     split: bool = False,
-                     offset: bool = False) -> torch.Tensor:
-    """`split`: each group row its own (1, W) state, the rows meeting only
-    in nested+walk's maximum over all row maxima at each tile's end.
-    `offset`: module doc."""
-    n = _parts(split)
-    accs = [torch.zeros((n, W), dtype=torch.float32, device=device)
-            for _ in range(GRP // n)]
+                     offset: bool = False, walk_floor: int = WALK_FLOOR,
+                     emits: list = None) -> torch.Tensor:
+    """`offset` and `walk_floor`: module doc; `emits`, if given, receives
+    each tile's walk emit (nested+walk)."""
+    acc = torch.zeros((GRP, W), dtype=torch.float32, device=device)
     for _ in range(2):
-        states = []
-        for s, acc in enumerate(accs):
-            rows = [acc * 0.001 + (i + 1.0) for i in range(N_ROWS)]
-            if offset:
-                rows = [r + _offset(device, s * n, n) for r in rows]
-            states.append(_carried_loop(rows, _msp0(device, n), trips))
-        emit = (_dead_walks(torch.cat([msp for _, msp in states]))
-                if with_walk else 0)
-        accs = [rows[0] + msp + float(emit) for rows, msp in states]
-    return torch.cat(accs)
+        rows = [acc * 0.001 + (i + 1.0) for i in range(N_ROWS)]
+        if offset:
+            rows = [r + _offset(device) for r in rows]
+        rows, msp = _carried_loop(rows, _msp0(device), trips)
+        emit = _dead_walks(msp, walk_floor, False) if with_walk else 0
+        if with_walk and emits is not None:
+            emits.append(emit)
+        acc = rows[0] + msp + emit
+    return acc
 
 
-# the whole-state plain versions; those of CLUSTER_VARIANTS (here and in
-# SPLIT_REFERENCES) take the offset as a third argument
+# the plain versions; those of CLUSTER_VARIANTS take the offset as a
+# third argument, those of WALK_VARIANTS also walk_floor and emits
 REFERENCES = {
     "carcass": lambda t, d: carcass_reference(t, d),
-    "body/carried": lambda t, d: body_reference("carried", t, d),
-    "body/scratch": lambda t, d: body_reference("scratch", t, d),
+    "body/carried": lambda t, d, o=False: body_reference("carried", t, d,
+                                                         o),
+    "body/scratch": lambda t, d, o=False: body_reference("scratch", t, d,
+                                                         o),
     "scalar0d/cond": lambda t, d, o=False: scalar0d_reference(
-        "cond", t, d, offset=o),
+        "cond", t, d, o),
     "scalar0d/body": lambda t, d, o=False: scalar0d_reference(
-        "body", t, d, offset=o),
+        "body", t, d, o),
     "scalar0d/both": lambda t, d, o=False: scalar0d_reference(
-        "both", t, d, offset=o),
-    "deadcode": lambda t, d: deadcode_reference(t, d),
-    "nested": lambda t, d, o=False: nested_reference(False, t, d, offset=o),
-    "nested+walk": lambda t, d, o=False: nested_reference(True, t, d,
-                                                          offset=o),
-}
-# the row-split plain versions: the cluster instances' decomposition
-SPLIT_REFERENCES = {
-    "scalar0d/cond": lambda t, d, o=False: scalar0d_reference(
-        "cond", t, d, True, o),
-    "scalar0d/body": lambda t, d, o=False: scalar0d_reference(
-        "body", t, d, True, o),
-    "scalar0d/both": lambda t, d, o=False: scalar0d_reference(
-        "both", t, d, True, o),
-    "nested": lambda t, d, o=False: nested_reference(False, t, d, True, o),
-    "nested+walk": lambda t, d, o=False: nested_reference(True, t, d, True,
-                                                          o),
+        "both", t, d, o),
+    "deadcode": lambda t, d, o=False, wf=WALK_FLOOR, e=None:
+        deadcode_reference(t, d, o, wf, e),
+    "nested": lambda t, d, o=False: nested_reference(False, t, d, o),
+    "nested+walk": lambda t, d, o=False, wf=WALK_FLOOR, e=None:
+        nested_reference(True, t, d, o, wf, e),
 }

@@ -14,9 +14,9 @@ cost cancels. Each time is the best of 6 runs after one warm-up, taken
 with CUDA events on the current stream. `--device cpu` runs the plain
 PyTorch versions instead, timed by the host clock: a check of the tool,
 not a measurement of any device. The variants and their order are the
-JAX tool's; the first line names the device. scalar0d's and nested's
-variants print two lines: their cluster instance (one cluster of 8 CTAs,
-the default) under the JAX tool's label, then their one-block instance,
+JAX tool's; the first line names the device. Every variant but the
+carcass prints two lines: its cluster instance (one cluster of 8 CTAs,
+the default) under the JAX tool's label, then its one-block instance,
 the label followed by " [one block]". `--cluster-exchange barrier`
 builds the cluster instances with scalar0d's per-body exchange waiting
 at a cluster barrier instead of on st.async stores' mbarrier (`async`,

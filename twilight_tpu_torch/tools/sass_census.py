@@ -6,7 +6,8 @@ of the grouped Pallas kernel's loop bodies. Here the compiler's output is
 SASS: `cuobjdump -sass` of each library of `build.SOURCES`
 (`talco_xdrop.cu`: the four `talco_xdrop_kernel<P, Leaf>` instances;
 `probe_loop_costs.cu`: the nine one-block `probe_loop_kernel<V>` probe
-variants and the five cluster instances `probe_cluster_kernel<V>`).
+variants and the eight cluster instances `probe_cluster_kernel<V>`, every
+variant but the carcass).
 Each function's instructions are counted by class after stripping the
 predicate (`@P0`, `@!PT`) and the modifiers (`.64`, `.E`, `.STRONG.GPU`):
 
