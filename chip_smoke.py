@@ -65,25 +65,25 @@ Phases (each prints its own lines; any failure exits non-zero):
    wait), the median of 50 by the host clock, the figure behind the level
    gate of pipeline/aligner.py; the unforced sim2k run of phase 8 must
    make at least one launch through that gate;
-11. loop-cost probes (`probes`, K6-K10): the 9 one-block variants of
-   ops/csrc/probe_loop_costs.cu and its 8 cluster instances (every
-   variant but the carcass, one cluster of 8 CTAs, a group row a CTA) at
-   2, 6 and 40 trips, bit-equal to their plain versions on CUDA tensors
-   (NaN positions included; every variant but the carcass in both
+11. loop-cost probes (`probes`, K6-K10): the 9 variants of
+   ops/csrc/probe_loop_costs.cu, each as one block and as one cluster of
+   8 CTAs (a group row a CTA), at 2, 6 and 40 trips, bit-equal to their
+   plain versions on CUDA tensors (NaN positions included), in both
    layouts also with the initial state's offset, which makes a wrong
-   roll or a skipped exchange change the result, and body/scratch then
-   finite), each cluster instance bit-equal to its one-block instance
-   at 4000 trips, with each instance's registers, local spill bytes,
-   threads, cluster size and resident clusters (a cluster instance: no
-   local bytes); deadcode and nested+walk in both layouts with live
-   walks (2 trips, the offset, walk_floor 4096: the exchange that
-   starts them is then seen), bit-equal to their plain versions, whose
-   walks emit; then the port's probe tool (tools/probe_loop_costs.py)
-   times each instance in ns/step with the launch counts zeroed just
-   before and read just after, and the plain versions are timed per
-   step. Last, the build whose scalar0d/body and /both exchange at a
-   cluster barrier (-DPROBE_CLUSTER_EXCHANGE=1, built with the others)
-   is held to the same checks and timed beside the default.
+   roll, a skipped exchange or a row written in another's place change
+   the result (and body/scratch then finite), each cluster instance
+   bit-equal to its one-block instance at 4000 trips, with each
+   instance's registers, local spill bytes, threads, cluster size and
+   resident clusters (a cluster instance: no local bytes); deadcode and
+   nested+walk in both layouts with live walks (2 trips, the offset,
+   walk_floor 4096: the exchange that starts them is then seen),
+   bit-equal to their plain versions, whose walks emit; then the port's
+   probe tool (tools/probe_loop_costs.py) times each instance in ns/step
+   with the launch counts zeroed just before and read just after, and
+   the plain versions are timed per step. Last, the build whose
+   scalar0d/body and /both exchange at a cluster barrier
+   (-DPROBE_CLUSTER_EXCHANGE=1, built with the others) is held to the
+   same checks and timed beside the default.
 12. workflow (`workflow`): `python -m twilight_tpu_torch.workflow`'s
    iterative mode (run_iterative, what its main runs) on sim10k (10000 x
    1 kb), 2 iterations, default backend: each step's wall (k-mer, Gram on
@@ -135,7 +135,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    md5; -h with torch refused;
 21. SASS census (`census`, right after the build; tools/sass_census.py):
    the instruction mix by class of the 4 TALCO instances, the 9 one-block
-   probe variants and the 8 cluster instances from cuobjdump -sass of the
+   probe variants and the 9 cluster instances from cuobjdump -sass of the
    built libraries; every instance must be there, one whose
    cudaFuncGetAttributes local size is 0 must show no LDL/STL, no probe
    instance an FFMA, no cluster instance local bytes; each TALCO
@@ -251,9 +251,11 @@ runpy.run_module("twilight_tpu_torch", run_name="__main__", alter_sys=True)
 """
 # the probe kernels (K6-K10): wrapper, replaced pallas_call, the variant
 # whose time is the kernel's "ms", f32 operations per loop step, layout
-# (K7-K10: the cluster instances, then the one-block ones)
+# (the cluster instance, then the one-block one)
 GRP_W = 8 * 640
 PROBES = [
+    ("carcass", "K6", "tools/probe_loop_costs.py:86", "carcass",
+     8 * GRP_W + 20 * 8, "cluster"),
     ("carcass", "K6", "tools/probe_loop_costs.py:86", "carcass",
      8 * GRP_W + 20 * 8, "block"),
     ("body", "K7", "tools/probe_loop_costs.py:144", "body/carried",
@@ -764,7 +766,7 @@ def _probe_bits_equal(a, b):
 
 def probe_instances():
     """(variant, layout) of every probe kernel instance: the 9 one-block
-    instances, then the 8 cluster instances."""
+    instances, then the 9 cluster instances."""
     from twilight_tpu_torch.ops import probe_loop
     return ([(n, "block") for n in probe_loop.REFERENCES]
             + [(n, "cluster") for n in probe_loop.CLUSTER_VARIANTS])
@@ -772,19 +774,17 @@ def probe_instances():
 
 def _probe_checks(torch, probe_loop, name, layout, out, key):
     """One instance through its kernel at 2, 6 and 40 trips, bit-equal to
-    its plain version, for CLUSTER_VARIANTS also with the offset (and
-    body/scratch then finite); its attributes (a cluster instance: 8
-    CTAs, at least one cluster resident, no local bytes); a cluster
-    instance bit-equal to the one-block one at PROBE_AB_TRIPS."""
+    its plain version, offset off and on (body/scratch then finite); its
+    attributes (a cluster instance: 8 CTAs, at least one cluster
+    resident, no local bytes); a cluster instance bit-equal to the
+    one-block one at PROBE_AB_TRIPS."""
     ref = probe_loop.REFERENCES[name]
-    offsets = (False, True) if name in probe_loop.CLUSTER_VARIANTS else (
-        False,)
     worst = 0.0
-    for offset in offsets:
+    for offset in (False, True):
         for trips in (2, 6, 40):
             got = probe_loop.run(name, trips, out, layout, offset).clone()
             torch.cuda.synchronize()
-            want = ref(trips, "cuda", True) if offset else ref(trips, "cuda")
+            want = ref(trips, "cuda", offset)
             same, err = _probe_bits_equal(got, want)
             worst = max(worst, err)
             check(same, f"probes/{key}: kernel != plain version at "
@@ -795,7 +795,7 @@ def _probe_checks(torch, probe_loop, name, layout, out, key):
                       f"{trips} trips")
     attr = probe_loop.attributes(name, layout)
     rec = {"name": name, "layout": layout, "max_abs_err": worst,
-           "offset_checked": len(offsets) == 2, "attributes": attr}
+           "attributes": attr}
     if layout == "cluster":
         check(attr["cluster_size"] == probe_loop.GRP
               and attr["max_active_clusters"] >= 1
@@ -836,12 +836,11 @@ def _live_walk_checks(torch, probe_loop, out):
 
 
 def phase_probes(torch):
-    """The loop-cost probes (K6-K10): each of the 9 variants' one-block
-    instance and the 8 cluster instances (every variant but the carcass
-    as one cluster of 8 CTAs) held to their plain versions and to each
-    other (_probe_checks), and the walks live (_live_walk_checks); then
-    the port's probe tool (the main path of these
-    kernels) times every instance, with the launch counts zeroed just
+    """The loop-cost probes (K6-K10): each of the 9 variants as one block
+    and as one cluster of 8 CTAs, held to their plain versions and to
+    each other (_probe_checks), and the walks live (_live_walk_checks);
+    then the port's probe tool (the main path of these kernels) times
+    every instance, with the launch counts zeroed just
     before and read just after; the plain version's time per step; last,
     scalar0d/body's and /both's cluster instances of the barrier-exchange
     build, held to the same checks and timed."""
@@ -903,6 +902,12 @@ def phase_probes(torch):
           "body/scratch - body/carried (the rows in shared memory) "
           f"{res['body/scratch [cluster]']['ns_per_step'] - bare:.1f} ns",
           flush=True)
+    floor = res["carcass [cluster]"]["ns_per_step"]
+    print("[probes] the cluster layout's loop floor (carcass, cluster) "
+          f"{floor:.1f} ns, one block "
+          f"{res['carcass [block]']['ns_per_step']:.1f} ns; body/carried - "
+          f"carcass, cluster (the body's chain and its CTA barrier) "
+          f"{bare - floor:.1f} ns", flush=True)
     print("[probes] the row maxima's exchange a step, scalar0d/both - "
           f"scalar0d/cond: st.async and mbarrier "
           f"{res['scalar0d/both [cluster]']['ns_per_step'] - cond:.1f} ns, "
@@ -1486,7 +1491,7 @@ def phase_multidevice(torch, td):
 
 def phase_census(attributes):
     """The instruction mix of every kernel instance (tools/sass_census.py
-    on the built libraries). Held: all 21 instances are there, none
+    on the built libraries). Held: all 22 instances are there, none
     whose cudaFuncGetAttributes local size is 0 has LDL/STL, no probe
     instance has an FFMA (they divide nothing), and no cluster instance
     has local bytes. Each TALCO instance's FFMA count is printed with its

@@ -1,9 +1,11 @@
-"""The cluster instances of the loop-cost probes K7 (body), K8
-(scalar0d), K9 (deadcode) and K10 (nested): one cluster of 8 CTAs, CTA g
-holding group row g (ops/csrc/probe_loop_costs.cu, probe_cluster_kernel<V>).
+"""The cluster instances of the loop-cost probes K6 (carcass), K7 (body),
+K8 (scalar0d), K9 (deadcode) and K10 (nested): one cluster of 8 CTAs,
+CTA g holding group row g (ops/csrc/probe_loop_costs.cu,
+probe_cluster_kernel<V>).
 
 On the CPU: the initial state's offset making every row and lane differ,
-and a wrong roll or a skipped exchange change the result; live walks
+and a wrong roll, a skipped exchange or a row written in another's place
+change the result; the carcass with the offset against numpy; live walks
 (walk_floor above the row maxima) that emit, and that a walk started from
 one row's maximum instead of all 8's would change; the wrappers' routing
 to the cluster instance by default and to the one-block instance on
@@ -17,6 +19,7 @@ kernels themselves run only on a card (chip_smoke.py's `probes` and
 """
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,7 +55,11 @@ def test_offset_is_exact():
     assert torch.equal(off.double(), g / 128 + x / 4096)
 
 
-@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+# the variants whose body rolls its rows by a lane: all but the carcass
+ROLL_VARIANTS = [n for n in probe_loop.CLUSTER_VARIANTS if n != "carcass"]
+
+
+@pytest.mark.parametrize("name", ROLL_VARIANTS)
 def test_offset_makes_a_wrong_roll_visible(monkeypatch, name):
     """A roll that takes the wrong lane (by two lanes, not one) leaves
     the tool's uniform state unchanged, and changes it with the offset."""
@@ -64,6 +71,45 @@ def test_offset_makes_a_wrong_roll_visible(monkeypatch, name):
            for o in (False, True)}
     assert _bits_equal(got[False], want[False])
     assert not _bits_equal(got[True], want[True])
+
+
+@pytest.mark.parametrize("name", probe_loop.CLUSTER_VARIANTS)
+def test_offset_makes_a_wrong_row_visible(name):
+    """A cluster instance whose CTA g wrote its result into row g + 1 (the
+    plain version's rows rolled by one group row) gives the tool's result,
+    which is the same in every row, and another with the offset."""
+    want = {o: probe_loop.REFERENCES[name](2, "cpu", o)
+            for o in (False, True)}
+    got = {o: torch.roll(w, 1, 0) for o, w in want.items()}
+    assert _bits_equal(got[False], want[False])
+    assert not _bits_equal(got[True], want[True])
+
+
+@pytest.mark.parametrize("layout", probe_loop.LAYOUTS)
+@pytest.mark.parametrize("trips", [2, 6, 40])
+def test_carcass_offset_matches_numpy(trips, layout):
+    """The carcass with the offset, through either layout's CPU wrapper,
+    equals the same program in numpy f32 from the same start: row i at
+    i + g * 2^-7 + x * 2^-12, column i at i + g, +1 each a body, then
+    0 + r0 + ... + r7 + float(c0)."""
+    g = np.arange(probe_loop.GRP, dtype=np.float32)[:, None]
+    x = np.arange(probe_loop.W, dtype=np.float32)
+    off = g * np.float32(2.0 ** -7) + x * np.float32(2.0 ** -12)
+    rows = [np.float32(i) + off for i in range(probe_loop.N_ROWS)]
+    col0 = np.arange(probe_loop.GRP, dtype=np.int32)[:, None]
+    for _ in range(probe_loop.loop_steps(trips)):
+        rows = [r + np.float32(1.0) for r in rows]
+        col0 = col0 + 1
+    want = np.zeros((probe_loop.GRP, probe_loop.W), dtype=np.float32)
+    for r in rows:
+        want = want + r
+    want = want + col0.astype(np.float32)
+    assert want.dtype == np.float32
+    out = torch.empty((probe_loop.GRP, probe_loop.W))
+    got = probe_loop.carcass(trips, out, layout, offset=True).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, probe_loop.carcass_reference(trips)
+                              .numpy())
 
 
 @pytest.mark.parametrize("variant", ["body", "both"])
@@ -189,26 +235,19 @@ def launches(monkeypatch):
 
 @pytest.mark.parametrize("name", list(probe_loop.KERNEL_ID))
 def test_wrappers_route_by_layout(launches, name):
-    """Every variant but the carcass launches its cluster instance by
-    default and the one-block instance with layout="block"; the carcass
-    only its one-block instance. Each launch counts once, a cluster
-    launch also in cluster_launches."""
+    """Every variant, the carcass too, launches its cluster instance by
+    default and the one-block instance with layout="block". Each launch
+    counts once, a cluster launch also in cluster_launches."""
     vid = probe_loop.KERNEL_ID[name]
     fn = {"carcass": probe_loop.carcass, "deadcode": probe_loop.deadcode,
           "nested": probe_loop.nested, "scalar0d": probe_loop.scalar0d,
           "body": probe_loop.body}[name.split("/")[0].split("+")[0]]
+    assert name in probe_loop.CLUSTER_VARIANTS
     probe_loop.run(name, 4, _CudaOut())
-    cluster = name in probe_loop.CLUSTER_VARIANTS
-    assert launches == [(vid, int(cluster))]
-    assert probe_loop.default_layout(name) == (
-        "cluster" if cluster else "block")
+    assert launches == [(vid, 1)]
     probe_loop.run(name, 4, _CudaOut(), "block")
     assert launches[1:] == [(vid, 0)]
-    assert (fn.launches, fn.cluster_launches) == (2, int(cluster))
-    if not cluster:
-        with pytest.raises(ValueError, match="no cluster instance"):
-            probe_loop.run(name, 4, _CudaOut(), "cluster")
-        assert len(launches) == 2
+    assert (fn.launches, fn.cluster_launches) == (2, 1)
     assert sum(f.launches for f in probe_loop.WRAPPERS) == 2
 
 
@@ -222,14 +261,6 @@ def test_offset_reaches_the_launch(launches, name, layout):
     vid, cluster = probe_loop.KERNEL_ID[name], int(layout == "cluster")
     assert launches == [(vid, cluster)] * 2
     assert launches.offsets == [1, 0]
-
-
-@pytest.mark.parametrize("name", [n for n in probe_loop.KERNEL_ID
-                                  if n not in probe_loop.CLUSTER_VARIANTS])
-def test_offset_only_where_a_cluster_instance_is(launches, name):
-    with pytest.raises(ValueError, match="takes no offset"):
-        probe_loop.run(name, 4, _CudaOut(), offset=True)
-    assert launches == []
 
 
 @pytest.mark.parametrize("layout", probe_loop.LAYOUTS)
@@ -278,8 +309,9 @@ def test_cpu_wrapper_runs_its_layouts_plain_version(monkeypatch, name):
     with the same arguments and the same result; neither counts a
     launch."""
     seen = []
-    for fn in (probe_loop.body_reference, probe_loop.scalar0d_reference,
-               probe_loop.deadcode_reference, probe_loop.nested_reference):
+    for fn in (probe_loop.carcass_reference, probe_loop.body_reference,
+               probe_loop.scalar0d_reference, probe_loop.deadcode_reference,
+               probe_loop.nested_reference):
         def spy(*args, _fn=fn, **kw):
             seen.append((_fn.__name__, args, kw))
             return _fn(*args, **kw)
@@ -293,13 +325,14 @@ def test_cpu_wrapper_runs_its_layouts_plain_version(monkeypatch, name):
 
 
 @pytest.mark.parametrize("what,names", [
+    ("carcass", ["carcass rows=8 cols=20"]),
     ("scalar0d", ["body/carried", "scalar0d/cond", "scalar0d/body",
                   "scalar0d/both"]),
     ("nested", ["body/carried", "nested(2 tiles)", "nested(2 tiles)+walk"]),
     ("body", ["body/carried", "body/scratch"]),
     ("deadcode", ["body/carried", "deadcode"])])
 def test_port_tool_prints_both_layouts(capsys, what, names):
-    """`--device cpu` prints each K7-K10 variant twice: the cluster
+    """`--device cpu` prints each K6-K10 variant twice: the cluster
     instance under the JAX tool's label, then the one-block instance."""
     assert port_tool.main([what, "--device", "cpu", "--trips", "2",
                            "4"]) == 0

@@ -167,8 +167,11 @@ B = " [one block]"
 CARRIED = ["body/carried", "body/carried" + B]
 
 
+CARCASS = ["carcass rows=8 cols=20", "carcass rows=8 cols=20" + B]
+
+
 @pytest.mark.parametrize("what,lines", [
-    ("carcass", ["carcass rows=8 cols=20"]),
+    ("carcass", CARCASS),
     ("body", CARRIED + ["body/scratch", "body/scratch" + B]),
     ("scalar0d", CARRIED + ["scalar0d/cond", "scalar0d/cond" + B,
                             "scalar0d/body", "scalar0d/body" + B,
@@ -177,7 +180,7 @@ CARRIED = ["body/carried", "body/carried" + B]
     ("nested", CARRIED + ["nested(2 tiles)", "nested(2 tiles)" + B,
                           "nested(2 tiles)+walk",
                           "nested(2 tiles)+walk" + B]),
-    ("all", ["carcass rows=8 cols=20"] + CARRIED
+    ("all", CARCASS + CARRIED
      + ["body/scratch", "body/scratch" + B] + CARRIED
      + ["scalar0d/cond", "scalar0d/cond" + B, "scalar0d/body",
         "scalar0d/body" + B, "scalar0d/both", "scalar0d/both" + B]),
@@ -185,9 +188,8 @@ CARRIED = ["body/carried", "body/carried" + B]
 def test_port_tool_argv_and_format(capsys, what, lines):
     """The port's tool takes the JAX tool's argv and prints one
     'label: X ns/step' line per variant, in the JAX tool's order, and for
-    every variant but the carcass a second line for the one-block
-    instance (here on the CPU with the plain versions, at 2 and 4
-    trips)."""
+    every variant a second line for the one-block instance (here on the
+    CPU with the plain versions, at 2 and 4 trips)."""
     assert port_tool.main([what, "--device", "cpu", "--trips", "2",
                            "4"]) == 0
     out = capsys.readouterr().out.strip().splitlines()

@@ -89,6 +89,27 @@ def _check(res):
     assert p["ffma_source"] == "none"
     assert p["other_ops"] == {"NOP": 1}
     assert p["variant"] == "nested"
+    assert t["loops"] == p["loops"] == []     # a forward branch only
+
+
+def test_census_counts_each_loop():
+    """A backward branch's loop is counted by opcode from its target to
+    the branch; the trap after EXIT (a branch to itself) is no loop."""
+    listing = """
+		Function : _ZN12_GLOBAL__N_117probe_loop_kernelILi0EEEviiiPf
+        /*0000*/                   MOV R0, RZ ;
+        /*0010*/                   FADD R1, R1, 1 ;
+        /*0020*/                   FADD R2, R2, 1 ;
+        /*0030*/                   UIADD3 UR4, UR4, 0x2, URZ ;
+        /*0040*/                   ISETP.LE.AND P0, PT, R3, UR4, PT ;
+        /*0050*/              @!P0 BRA 0x10 ;
+        /*0060*/                   EXIT ;
+        /*0070*/                   BRA 0x70 ;
+"""
+    res = sass_census.census(listing)["probe_loop_kernel<0>"]
+    assert res["variant"] == "carcass"
+    assert res["loops"] == [{"from": "0x10", "to": "0x50", "mix": {
+        "BRA": 1, "FADD": 2, "ISETP": 1, "UIADD3": 1}}]
 
 
 @pytest.mark.parametrize("instr,op", [
@@ -143,12 +164,12 @@ def test_cli_listing_json(tmp_path, capsys):
 
 def test_expected_instances():
     """The 4 TALCO instances, the 9 one-block probe variants, the probe
-    names in probe_loop.KERNEL_ID's order, and the 8 cluster instances
-    (every variant but the carcass: body's 2, scalar0d's 3, deadcode,
+    names in probe_loop.KERNEL_ID's order, and the 9 cluster instances
+    (every variant: the carcass, body's 2, scalar0d's 3, deadcode,
     nested's 2)."""
     from twilight_tpu_torch.ops.probe_loop import CLUSTER_VARIANTS, KERNEL_ID
-    assert len(sass_census.EXPECTED) == 21
-    assert "probe_cluster_kernel<0>" not in sass_census.EXPECTED
+    assert len(sass_census.EXPECTED) == 22
+    assert "probe_cluster_kernel<0>" in sass_census.EXPECTED
     assert sass_census.EXPECTED[:4] == (
         "talco_xdrop_kernel<6, false>", "talco_xdrop_kernel<6, true>",
         "talco_xdrop_kernel<22, false>", "talco_xdrop_kernel<22, true>")
@@ -158,11 +179,11 @@ def test_expected_instances():
         f"probe_cluster_kernel<{KERNEL_ID[n]}>" for n in CLUSTER_VARIANTS)
 
 
-@pytest.mark.parametrize("v,name", [(1, "body/carried"),
+@pytest.mark.parametrize("v,name", [(0, "carcass"), (1, "body/carried"),
                                     (2, "body/scratch"), (6, "deadcode")])
 def test_census_names_the_new_cluster_instances(v, name):
-    """K7's and K9's cluster instances are named by variant and layout,
-    beside their one-block instances, and are expected."""
+    """K6's, K7's and K9's cluster instances are named by variant and
+    layout, beside their one-block instances, and are expected."""
     listing = (f"\t\tFunction : _ZN12_GLOBAL__N_120probe_cluster_kernelILi{v}"
                "EEEviiiPf\n        /*0000*/                   EXIT ;\n"
                f"\t\tFunction : _ZN12_GLOBAL__N_117probe_loop_kernelILi{v}"

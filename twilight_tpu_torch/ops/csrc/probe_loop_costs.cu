@@ -13,8 +13,7 @@
 // in the same order (build with -fmad=false), so the two agree bit for
 // bit, NaN positions included.
 //
-// Two layouts. Every variant but the carcass has both; the carcass only
-// the first.
+// Two layouts; every variant has both.
 //
 // One block (probe_loop_kernel<V>): one block of 512 threads holds the
 // whole (8, 640) state, as one TPU program held it. Thread t owns lanes
@@ -43,17 +42,23 @@
 // integer minimum), so live walks read defined values (before, the
 // one-block instance left it uninitialised).
 //
-// Cluster (probe_cluster_kernel<V>, the default of every variant that has
-// it): one cluster of 8 CTAs, CTA g (its rank in the cluster) holding
-// group row g, the 640 lanes of all 8 carried arrays. Rows meet only
-// where the program combines them, so the state splits by row with no
-// traffic inside a body: CT = 320 threads a CTA (10 warps), CL = 2 lanes
-// a thread, 16 floats of state a thread, no spill (of 128, 160, 320 and
-// 640 threads, 320 was the fastest in every variant on the H100;
-// PERF.md). The roll and the row maximum stay inside the CTA (shuffles,
-// then the warp-boundary lanes and the warp partials through shared
-// memory, double-buffered by body parity as in one block). What each
-// instance exchanges:
+// Cluster (probe_cluster_kernel<V>, the default of every variant): one
+// cluster of 8 CTAs, CTA g (its rank in the cluster) holding group row g,
+// the 640 lanes of all 8 carried arrays. Rows meet only where the program
+// combines them, so the state splits by row with no traffic inside a
+// body: CT = 320 threads a CTA (10 warps), CL = 2 lanes a thread, 16
+// floats of state a thread, no spill (of 128, 160, 320 and 640 threads,
+// 320 was the fastest in every variant on the H100; PERF.md). The roll
+// and the row maximum stay inside the CTA (shuffles, then the
+// warp-boundary lanes and the warp partials through shared memory,
+// double-buffered by body parity as in one block). What each instance
+// exchanges:
+// - carcass: nothing, and it has no cluster barrier: CTA g carries row g's
+//   lanes of the 8 rows and row g's 20 columns and writes row g. Nothing
+//   bounds it but the FP32 issue of its 8 SMs (16 FADDs a thread a body,
+//   10 warps on 4 schedulers; one block: one SM's, 80 FADDs a thread over
+//   16 warps): the rows' adds form no chain and nothing is exchanged. It
+//   is the cluster layout's loop floor.
 // - body/carried and nested: nothing; the rows never meet. body/carried
 //   is the bare split step: the body and one CTA barrier a body.
 // - body/scratch: nothing; CTA g keeps its (8, 640) slice of the scratch
@@ -80,33 +85,35 @@
 //   CTA pushes its row maximum into every CTA and waits at one cluster
 //   barrier. Every CTA holds the whole int8 scratch (16 KB, static) and
 //   runs all 8 walks, the same dead code in scope as one block.
-// A cluster barrier at entry (every CTA has started, and its mbarriers
-// are initialised, before a peer writes its shared memory) and one at
-// exit (none leaves while a peer may still write it). Each CTA reserves
-// more than half an SM's shared memory, so the 8 CTAs run on 8 SMs. The
-// parity slots need no barrier of their own: a CTA stores into slot p for
-// body k + 2 only after it has received every CTA's maximum of body
-// k + 1, which each CTA sends after reading slot p of body k.
+// Every variant but the carcass has a cluster barrier at entry (every CTA
+// has started, and its mbarriers are initialised, before a peer writes
+// its shared memory) and one at exit (none leaves while a peer may still
+// write it). Each CTA reserves more than half an SM's shared memory, so
+// the 8 CTAs run on 8 SMs. The parity slots need no barrier of their
+// own: a CTA stores into slot p for body k + 2 only after it has received
+// every CTA's maximum of body k + 1, which each CTA sends after reading
+// slot p of body k.
 //
-// What bounds it: a dependent chain of one barrier and the body's ~37 f32
-// operations per element per step; it reads nothing and writes 20 KB
-// once, so bytes do not bound it. The per-step bound on the card (the
-// operations over the f32 peak of all 132 SMs) is ~130x under what one
-// SM can issue, and the program is one dependent chain, so no instance
-// comes near it; that is the point of the probe: one block measures the
-// floor of one block's step, the structure of the TALCO kernel's
-// per-diagonal step (talco_xdrop.cu, one block per pair); the cluster
-// measures what 8 SMs buy a step and what an exchange of the row maxima
-// through distributed shared memory costs one, the two figures that
-// splitting one pair's band over a cluster is planned from.
+// What bounds it (every variant but the carcass, above): a dependent
+// chain of one barrier and the body's ~37 f32 operations per element per
+// step; it reads nothing and writes 20 KB once, so bytes do not bound it.
+// The per-step bound on the card (the operations over the f32 peak of all
+// 132 SMs) is ~130x under what one SM can issue, and the program is one
+// dependent chain, so no instance comes near it; that is the point of the
+// probe: one block measures the floor of one block's step, the structure
+// of the TALCO kernel's per-diagonal step (talco_xdrop.cu, one block per
+// pair); the cluster measures what 8 SMs buy a step and what an exchange
+// of the row maxima through distributed shared memory costs one, the two
+// figures that splitting one pair's band over a cluster is planned from.
 //
 // The offset (a launch argument; 0 runs the JAX tool's program): every
-// variant but the carcass, in both layouts, starts its carried rows (and
-// body/scratch its scratch) at base + g * 2^-7 + x * 2^-12 (group row g,
-// lane x; exact in f32), as its plain version does with offset=True. The
-// tool's state is the same in every row and lane, so a value rolled from
-// the wrong lane or a row maximum sent to the wrong CTA or slot would not
-// change its result; with the offset it does.
+// variant, in both layouts, starts its carried rows (and body/scratch its
+// scratch) at base + g * 2^-7 + x * 2^-12 (group row g, lane x; exact in
+// f32), and the carcass its 20 columns at i + g, as its plain version does
+// with offset=True. The tool's state is the same in every row and lane,
+// so a value rolled from the wrong lane, a row maximum sent to the wrong
+// CTA or slot, or a row written in another's place would not change its
+// result; with the offset it does.
 //
 // Dead code stays in scope: the walks of deadcode and nested+walk start
 // at done = min(int(max(msp)), walk_floor), with walk_floor a launch
@@ -372,6 +379,65 @@ __device__ __forceinline__ int max_msp_i32(const float (&msp)[GRP]) {
     return to_i32(m);
 }
 
+// The carcass on a thread's N lanes [x0, x0 + N) of group row g, in either
+// layout: the 8 rows and the 20 columns (Off: the rows + the offset, the
+// columns + g), +1 each a body, two bodies a loop trip; then acc = 0 + r0
+// + ... + r7 + float(c0) into row g of out. Off is a template argument,
+// not a branch: from starts known only at run time nvcc keeps the 20
+// columns in the one-block loop (20 integer adds a trip, +12% a step on
+// the H100; PERF.md), from constant starts it folds them into the trip
+// count, so the tool's program (no offset) compiles without them.
+template <int N, bool Off>
+__device__ __forceinline__ void carcass_lanes(int trips, int walk_floor,
+                                              int g, int x0,
+                                              float* __restrict__ out) {
+    float r[NROW][N];
+#pragma unroll
+    for (int i = 0; i < NROW; ++i)
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            r[i][j] = (float)i;
+            if constexpr (Off) r[i][j] = r[i][j] + init_offset(g, x0 + j);
+        }
+    int col[NCOL];
+#pragma unroll
+    for (int i = 0; i < NCOL; ++i) col[i] = Off ? i + g : i;
+    for (int k = 0; k < trips;) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+#pragma unroll
+            for (int i = 0; i < NROW; ++i)
+#pragma unroll
+                for (int j = 0; j < N; ++j) r[i][j] = r[i][j] + 1.0f;
+#pragma unroll
+            for (int i = 0; i < NCOL; ++i) col[i] = col[i] + 1;
+            k += 1;
+        }
+    }
+    int live = 0;
+#pragma unroll
+    for (int i = 0; i < NCOL; ++i) live += col[i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NROW; ++i) acc = acc + r[i][j];
+        acc = acc + (float)col[0];
+        if (live == walk_floor) acc = qnan();   // never: keeps cols live
+        out[g * W + x0 + j] = acc;
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void carcass(int trips, int walk_floor,
+                                        int offset, int g, int x0,
+                                        float* __restrict__ out) {
+    if (offset)
+        carcass_lanes<N, true>(trips, walk_floor, g, x0, out);
+    else
+        carcass_lanes<N, false>(trips, walk_floor, g, x0, out);
+}
+
 template <int V>
 __global__ void __launch_bounds__(NT, 1)
 probe_loop_kernel(int trips, int walk_floor, int offset,
@@ -384,42 +450,11 @@ probe_loop_kernel(int trips, int walk_floor, int offset,
     const int warp = tid >> 5;
     const int g0 = tid / TPR;
     const int x0 = (tid % TPR) * LPT;         // first lane of this thread
-    float r[NROW][LPT];
 
     if constexpr (V == V_CARCASS) {
-#pragma unroll
-        for (int i = 0; i < NROW; ++i)
-#pragma unroll
-            for (int j = 0; j < LPT; ++j) r[i][j] = (float)i;
-        int col[NCOL];
-#pragma unroll
-        for (int i = 0; i < NCOL; ++i) col[i] = i;
-        for (int k = 0; k < trips;) {
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-#pragma unroll
-                for (int i = 0; i < NROW; ++i)
-#pragma unroll
-                    for (int j = 0; j < LPT; ++j) r[i][j] = r[i][j] + 1.0f;
-#pragma unroll
-                for (int i = 0; i < NCOL; ++i) col[i] = col[i] + 1;
-                k += 1;
-            }
-        }
-        int live = 0;
-#pragma unroll
-        for (int i = 0; i < NCOL; ++i) live += col[i];
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) {
-            float acc = 0.0f;
-#pragma unroll
-            for (int i = 0; i < NROW; ++i) acc = acc + r[i][j];
-            acc = acc + (float)col[0];
-            if (live == walk_floor) acc = qnan();   // never: keeps cols live
-            out[g0 * W + x0 + j] = acc;
-        }
-        return;
+        carcass<LPT>(trips, walk_floor, offset, g0, x0, out);
     } else {
+        float r[NROW][LPT];
         constexpr bool kScratch = V == V_BODY_SCRATCH;
         constexpr bool kBias = V == V_S0D_COND || V == V_S0D_BODY
             || V == V_S0D_BOTH;
@@ -597,15 +632,21 @@ __device__ __forceinline__ float row_max(const float (&part)[CW]) {
     return m;
 }
 
-// Every variant but the carcass (module doc): CTA g of the cluster
-// computes group row g. Launched only as one cluster of NCTA CTAs
-// (cluster_config), whose dynamic shared memory (the reserve) holds
-// body/scratch's slice of the scratch.
+// Every variant (module doc): CTA g of the cluster computes group row g.
+// Launched only as one cluster of NCTA CTAs (cluster_config), whose
+// dynamic shared memory (the reserve) holds body/scratch's slice of the
+// scratch.
 template <int V>
 __global__ void __launch_bounds__(CT)
 probe_cluster_kernel(int trips, int walk_floor, int offset,
                      float* __restrict__ out) {
-    static_assert(V != V_CARCASS && V < N_VARIANTS, "no cluster instance");
+    static_assert(V < N_VARIANTS, "no such variant");
+    if constexpr (V == V_CARCASS) {
+        // the rows never meet: no exchange, no cluster barrier
+        carcass<CL>(trips, walk_floor, offset, cluster_rank(),
+                    (int)threadIdx.x * CL, out);
+        return;
+    }
     constexpr bool kScratch = V == V_BODY_SCRATCH;
     constexpr bool kBias = V == V_S0D_COND || V == V_S0D_BODY
         || V == V_S0D_BOTH;
@@ -804,20 +845,18 @@ extern "C" {
 
 // Launches probe `variant` (ops/probe_loop.py KERNEL_ID) for `trips` loop
 // steps into out (f32 [8, 640]) on `stream`, as one block or (cluster !=
-// 0; every variant but the carcass) one cluster of 8 CTAs, with the
-// initial state's offset when offset != 0 (every variant but the
-// carcass); returns the launch's error (cudaSuccess = 0; a refused
-// cluster launch is an error, never a one-block launch). Does not
-// synchronise.
+// 0) one cluster of 8 CTAs, with the initial state's offset when offset
+// != 0; returns the launch's error (cudaSuccess = 0; a refused cluster
+// launch is an error, never a one-block launch). Does not synchronise.
 cudaError_t probe_loop_launch(int variant, int cluster, int trips,
                               int walk_floor, int offset, void* out,
                               void* stream) {
     float* o = static_cast<float*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (trips < 0 || out == nullptr) return cudaErrorInvalidValue;
-    if (offset && variant == V_CARCASS) return cudaErrorInvalidValue;
     if (cluster) {
         switch (variant) {
+            case V_CARCASS: return launch_cluster<V_CARCASS>(trips, walk_floor, offset, o, s);
             case V_BODY_CARRIED: return launch_cluster<V_BODY_CARRIED>(trips, walk_floor, offset, o, s);
             case V_BODY_SCRATCH: return launch_cluster<V_BODY_SCRATCH>(trips, walk_floor, offset, o, s);
             case V_S0D_COND: return launch_cluster<V_S0D_COND>(trips, walk_floor, offset, o, s);
@@ -855,6 +894,8 @@ cudaError_t probe_loop_attributes(int variant, int cluster, int* out) {
     cudaError_t e = cudaSuccess;
     if (cluster) {
         switch (variant) {
+            case V_CARCASS: fn = (const void*)probe_cluster_kernel<V_CARCASS>;
+                e = cluster_config<V_CARCASS>(&cfg, &at, 0); break;
             case V_BODY_CARRIED: fn = (const void*)probe_cluster_kernel<V_BODY_CARRIED>;
                 e = cluster_config<V_BODY_CARRIED>(&cfg, &at, 0); break;
             case V_BODY_SCRATCH: fn = (const void*)probe_cluster_kernel<V_BODY_SCRATCH>;

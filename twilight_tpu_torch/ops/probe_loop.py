@@ -21,22 +21,23 @@ DP-like anti-diagonal body in one program. Each computes a (GRP, W) =
 
 The kernels are `csrc/probe_loop_costs.cu` (module doc there), in two
 layouts. `block`: one block holds the whole (8, 640) state, as one TPU
-program did. `cluster` (every variant but the carcass, their default):
-one cluster of 8 CTAs, CTA g holding group row g, the rows meeting only
-where the program combines them, through distributed shared memory:
-scalar0d/body and /both every body (st.async stores that complete the
-receiving CTA's mbarrier), deadcode after its loop and nested+walk at
-each tile's end (a cluster barrier); body, scalar0d/cond and nested
-exchange nothing. A wrapper given a CPU tensor runs the variant's one
-plain version, whatever the layout; given a CUDA tensor it launches the
-kernel on the current stream, or raises: a refused cluster launch never
-falls back to one block.
+program did. `cluster` (the default of every variant): one cluster of 8
+CTAs, CTA g holding group row g, the rows meeting only where the program
+combines them, through distributed shared memory: scalar0d/body and
+/both every body (st.async stores that complete the receiving CTA's
+mbarrier), deadcode after its loop and nested+walk at each tile's end (a
+cluster barrier); carcass, body, scalar0d/cond and nested exchange
+nothing. A wrapper given a CPU tensor runs the variant's one plain
+version, whatever the layout; given a CUDA tensor it launches the kernel
+on the current stream, or raises: a refused cluster launch never falls
+back to one block.
 
-`offset=True` (every variant but the carcass, either layout and the
-plain versions) starts the carried rows (body/scratch: its scratch) at
-base + g * 2^-7 + x * 2^-12 (group row g, lane x): the tool's state is
-the same in every row and lane, and the offset makes a value routed to
-the wrong lane, CTA or slot change the result.
+`offset=True` (every variant, either layout and the plain versions)
+starts the carried rows (body/scratch: its scratch) at base + g * 2^-7 +
+x * 2^-12 (group row g, lane x), and the carcass's 20 columns at i + g:
+the tool's state is the same in every row and lane, and the offset makes
+a value routed to the wrong lane, CTA or slot, or a row written in
+another's place, change the result.
 
 `walk_floor` (deadcode and nested): the walks start at done =
 min(int(max(msp)), walk_floor). The tool's WALK_FLOOR keeps them dead;
@@ -73,19 +74,11 @@ KERNEL_ID = {"carcass": 0, "body/carried": 1, "body/scratch": 2,
              "deadcode": 6, "nested": 7, "nested+walk": 8}
 BODY_VARIANTS = ("carried", "scratch")
 SCALAR0D_VARIANTS = ("cond", "body", "both")
-LAYOUTS = ("cluster", "block")
-# the variants with a cluster instance (their default layout), which
-# also take the offset: all but the carcass
-CLUSTER_VARIANTS = ("body/carried", "body/scratch", "scalar0d/cond",
-                    "scalar0d/body", "scalar0d/both", "deadcode", "nested",
-                    "nested+walk")
+LAYOUTS = ("cluster", "block")     # the first is every variant's default
+# the variants with a cluster instance: all nine
+CLUSTER_VARIANTS = tuple(KERNEL_ID)
 # the variants whose walks start at walk_floor
 WALK_VARIANTS = ("deadcode", "nested+walk")
-
-
-def default_layout(name: str) -> str:
-    """`cluster` for the variants that have it, else `block`."""
-    return "cluster" if name in CLUSTER_VARIANTS else "block"
 
 
 def loop_steps(trips: int) -> int:
@@ -109,13 +102,10 @@ def _check(out: torch.Tensor, trips: int) -> None:
         raise ValueError(f"unsupported device {out.device}")
 
 
-def _layout(name: str, layout: str) -> bool:
-    """Whether `layout` of variant `name` is its cluster instance."""
+def _layout(layout: str) -> bool:
+    """Whether `layout` is the cluster instance."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}")
-    if layout == "cluster" and name not in CLUSTER_VARIANTS:
-        raise ValueError(f"{name} has no cluster instance (those are "
-                         f"{CLUSTER_VARIANTS})")
     return layout == "cluster"
 
 
@@ -136,13 +126,18 @@ def _launch(kind: str, trips: int, out: torch.Tensor,
                            f"{rc})")
 
 
-def carcass(trips: int, out: torch.Tensor) -> torch.Tensor:
-    """K6 into `out` ((8, 640) f32; the kernel on CUDA, else plain)."""
+def carcass(trips: int, out: torch.Tensor, layout: str = "cluster",
+            offset: bool = False) -> torch.Tensor:
+    """K6 into `out` ((8, 640) f32; the kernel on CUDA, else plain), as
+    one cluster of 8 CTAs or (layout `block`) one block; `offset`: module
+    doc."""
+    cluster = _layout(layout)
     _check(out, trips)
     if out.device.type == "cpu":
-        return out.copy_(carcass_reference(trips))
-    _launch("carcass", trips, out)
+        return out.copy_(carcass_reference(trips, offset=offset))
+    _launch("carcass", trips, out, cluster, offset)
     carcass.launches += 1
+    carcass.cluster_launches += cluster
     return out
 
 
@@ -152,7 +147,7 @@ def body(variant: str, trips: int, out: torch.Tensor,
     8 CTAs or (layout `block`) one block; `offset`: module doc."""
     if variant not in BODY_VARIANTS:
         raise ValueError(f"body variant must be one of {BODY_VARIANTS}")
-    cluster = _layout(f"body/{variant}", layout)
+    cluster = _layout(layout)
     _check(out, trips)
     if out.device.type == "cpu":
         return out.copy_(body_reference(variant, trips, offset=offset))
@@ -169,7 +164,7 @@ def scalar0d(variant: str, trips: int, out: torch.Tensor,
     if variant not in SCALAR0D_VARIANTS:
         raise ValueError(
             f"scalar0d variant must be one of {SCALAR0D_VARIANTS}")
-    cluster = _layout(f"scalar0d/{variant}", layout)
+    cluster = _layout(layout)
     _check(out, trips)
     if out.device.type == "cpu":
         return out.copy_(scalar0d_reference(variant, trips, offset=offset))
@@ -184,7 +179,7 @@ def deadcode(trips: int, out: torch.Tensor, layout: str = "cluster",
              walk_floor: int = WALK_FLOOR) -> torch.Tensor:
     """K9 into `out`, as one cluster of 8 CTAs or (layout `block`) one
     block; `offset` and `walk_floor`: module doc."""
-    cluster = _layout("deadcode", layout)
+    cluster = _layout(layout)
     _check(out, trips)
     if out.device.type == "cpu":
         return out.copy_(deadcode_reference(trips, offset=offset,
@@ -202,7 +197,7 @@ def nested(with_walk: bool, trips: int, out: torch.Tensor,
     8 CTAs or (layout `block`) one block; `offset` and `walk_floor`:
     module doc."""
     name = "nested+walk" if with_walk else "nested"
-    cluster = _layout(name, layout)
+    cluster = _layout(layout)
     _check(out, trips)
     if out.device.type == "cpu":
         return out.copy_(nested_reference(with_walk, trips, offset=offset,
@@ -226,25 +221,19 @@ def reset_launches() -> None:
 reset_launches()
 
 
-def run(name: str, trips: int, out: torch.Tensor, layout: str = None,
+def run(name: str, trips: int, out: torch.Tensor, layout: str = "cluster",
         offset: bool = False, walk_floor: int = WALK_FLOOR) -> torch.Tensor:
-    """One of the nine variants by its name in KERNEL_ID, in `layout`
-    (default: default_layout(name)); `offset` for CLUSTER_VARIANTS only,
+    """One of the nine variants by its name in KERNEL_ID, in `layout`;
     `walk_floor` for deadcode and nested only."""
     if name not in KERNEL_ID:
         raise ValueError(f"unknown probe {name!r}")
-    layout = layout or default_layout(name)
     family, _, variant = name.partition("/")
     if walk_floor != WALK_FLOOR and family not in ("deadcode", "nested",
                                                    "nested+walk"):
         raise ValueError(f"{name} takes no walk_floor (those that do are "
                          "deadcode and nested)")
     if name == "carcass":
-        _layout(name, layout)
-        if offset:
-            raise ValueError(f"{name} takes no offset (those that do are "
-                             f"{CLUSTER_VARIANTS})")
-        return carcass(trips, out)
+        return carcass(trips, out, layout, offset)
     if family == "body":
         return body(variant, trips, out, layout, offset)
     if family == "scalar0d":
@@ -255,15 +244,14 @@ def run(name: str, trips: int, out: torch.Tensor, layout: str = None,
                   walk_floor)
 
 
-def attributes(name: str, layout: str = None) -> dict:
-    """cudaFuncGetAttributes of one variant's kernel in `layout` (default:
-    default_layout(name); needs a CUDA device): registers and local
-    (spill) bytes per thread, static shared bytes, maximum threads per
-    block; the launch's threads a block and blocks a cluster; and for a
-    cluster, cudaOccupancyMaxActiveClusters of its launch (None for one
-    block)."""
+def attributes(name: str, layout: str = "cluster") -> dict:
+    """cudaFuncGetAttributes of one variant's kernel in `layout` (needs a
+    CUDA device): registers and local (spill) bytes per thread, static
+    shared bytes, maximum threads per block; the launch's threads a
+    block and blocks a cluster; and for a cluster,
+    cudaOccupancyMaxActiveClusters of its launch (None for one block)."""
     from . import build
-    cluster = _layout(name, layout or default_layout(name))
+    cluster = _layout(layout)
     out = (ctypes.c_int * 7)()
     rc = build.load().probe_loop_attributes(KERNEL_ID[name], int(cluster),
                                             out)
@@ -335,11 +323,17 @@ def _offset(device) -> torch.Tensor:
     return g[:, None] * 2.0 ** -7 + x * 2.0 ** -12
 
 
-def carcass_reference(trips: int, device="cpu") -> torch.Tensor:
+def carcass_reference(trips: int, device="cpu",
+                      offset: bool = False) -> torch.Tensor:
+    """`offset`: row i starts at i + the offset, column i at i + g
+    (module doc)."""
     rows = [torch.full((GRP, W), float(i), dtype=torch.float32,
                        device=device) for i in range(N_ROWS)]
+    if offset:
+        rows = [r + _offset(device) for r in rows]
+    g = torch.arange(GRP, dtype=torch.int32, device=device)[:, None]
     cols = [torch.full((GRP, 1), i, dtype=torch.int32, device=device)
-            for i in range(N_COLS)]
+            + (g if offset else 0) for i in range(N_COLS)]
     for _ in range(loop_steps(trips)):
         rows = [r + 1.0 for r in rows]
         cols = [c + 1 for c in cols]
@@ -473,10 +467,10 @@ def nested_reference(with_walk: bool, trips: int, device="cpu",
     return acc
 
 
-# the plain versions; those of CLUSTER_VARIANTS take the offset as a
-# third argument, those of WALK_VARIANTS also walk_floor and emits
+# the plain versions; each takes the offset as a third argument, those
+# of WALK_VARIANTS also walk_floor and emits
 REFERENCES = {
-    "carcass": lambda t, d: carcass_reference(t, d),
+    "carcass": lambda t, d, o=False: carcass_reference(t, d, o),
     "body/carried": lambda t, d, o=False: body_reference("carried", t, d,
                                                          o),
     "body/scratch": lambda t, d, o=False: body_reference("scratch", t, d,

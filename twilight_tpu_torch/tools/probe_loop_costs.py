@@ -14,13 +14,13 @@ cost cancels. Each time is the best of 6 runs after one warm-up, taken
 with CUDA events on the current stream. `--device cpu` runs the plain
 PyTorch versions instead, timed by the host clock: a check of the tool,
 not a measurement of any device. The variants and their order are the
-JAX tool's; the first line names the device. Every variant but the
-carcass prints two lines: its cluster instance (one cluster of 8 CTAs,
-the default) under the JAX tool's label, then its one-block instance,
-the label followed by " [one block]". `--cluster-exchange barrier`
-builds the cluster instances with scalar0d's per-body exchange waiting
-at a cluster barrier instead of on st.async stores' mbarrier (`async`,
-the default; the card only).
+JAX tool's; the first line names the device. Every variant prints two
+lines: its cluster instance (one cluster of 8 CTAs, the default) under
+the JAX tool's label, then its one-block instance, the label followed by
+" [one block]". `--cluster-exchange barrier` builds the cluster
+instances with scalar0d's per-body exchange waiting at a cluster barrier
+instead of on st.async stores' mbarrier (`async`, the default; the card
+only).
 """
 from __future__ import annotations
 
@@ -68,9 +68,9 @@ def _time(fn, device) -> float:
 
 
 def ns_per_step(name: str, trips=(4000, 40000), device="cuda",
-                layout=None) -> float:
+                layout="cluster") -> float:
     """Per-step cost of one variant (a name of probe_loop.KERNEL_ID) in
-    `layout` (default: probe_loop.default_layout(name))."""
+    `layout`."""
     device = torch.device(device)
     out = torch.empty((probe_loop.GRP, probe_loop.W), dtype=torch.float32,
                       device=device)
@@ -89,9 +89,7 @@ BLOCK_SUFFIX = " [one block]"
 def layouts(name: str):
     """(label, layout) of each instance the tool times for a variant."""
     label = LABELS.get(name, name)
-    if name in probe_loop.CLUSTER_VARIANTS:
-        return [(label, "cluster"), (label + BLOCK_SUFFIX, "block")]
-    return [(label, "block")]
+    return [(label, "cluster"), (label + BLOCK_SUFFIX, "block")]
 
 
 def variants(what: str):

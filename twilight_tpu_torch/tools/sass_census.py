@@ -5,9 +5,8 @@ The counterpart of tools/mosaic_census.py, which counts the Mosaic IR ops
 of the grouped Pallas kernel's loop bodies. Here the compiler's output is
 SASS: `cuobjdump -sass` of each library of `build.SOURCES`
 (`talco_xdrop.cu`: the four `talco_xdrop_kernel<P, Leaf>` instances;
-`probe_loop_costs.cu`: the nine one-block `probe_loop_kernel<V>` probe
-variants and the eight cluster instances `probe_cluster_kernel<V>`, every
-variant but the carcass).
+`probe_loop_costs.cu`: the nine probe variants, each as one block,
+`probe_loop_kernel<V>`, and as one cluster, `probe_cluster_kernel<V>`).
 Each function's instructions are counted by class after stripping the
 predicate (`@P0`, `@!PT`) and the modifiers (`.64`, `.E`, `.STRONG.GPU`):
 
@@ -26,6 +25,10 @@ predicate (`@P0`, `@!PT`) and the modifiers (`.64`, `.E`, `.STRONG.GPU`):
 - conversion: F2I, I2F, F2F, I2I, F2FP, ...
 - other: every opcode the table does not know, listed by name (f64
   arithmetic, for instance, would show here).
+
+Each instance also lists its loops: the instructions from a backward
+branch's target to the branch, by opcode (what a loop trip issues, where
+the loop has no branch inside it).
 
 Two invariants show at the instruction level. The kernels are built with
 -fmad=false, yet FFMA appears where the correctly rounded f32 division
@@ -95,8 +98,9 @@ EXPECTED = tuple(f"talco_xdrop_kernel<{p}, {leaf}>" for p in (6, 22)
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)\s*$", re.M)
 # "/*0070*/  @!P0 BRA 0x1a0 ;": the address, then the instruction up to
 # its ";" (the encoding lines "/* 0x... */" never match)
-_INSTR = re.compile(r"^\s*/\*[0-9a-fA-F]+\*/\s+([^;]*?)\s*;", re.M)
+_INSTR = re.compile(r"^\s*/\*([0-9a-fA-F]+)\*/\s+([^;]*?)\s*;", re.M)
 _PRED = re.compile(r"^@!?U?P[0-9T]+\s+")
+_BRA_TARGET = re.compile(r"^BRA(?:\.\S+)?\s+0x([0-9a-fA-F]+)$")
 
 
 def opcode(instr: str) -> str:
@@ -105,13 +109,15 @@ def opcode(instr: str) -> str:
     return _PRED.sub("", instr.strip()).split(None, 1)[0].split(".")[0]
 
 
-def split_functions(text: str) -> List[Tuple[str, List[str]]]:
-    """[(mangled name, [instruction text])] of a cuobjdump -sass listing."""
+def split_functions(text: str) -> List[Tuple[str, List[Tuple[int, str]]]]:
+    """[(mangled name, [(address, instruction text)])] of a cuobjdump
+    -sass listing."""
     heads = list(_FUNCTION.finditer(text))
     out = []
     for k, m in enumerate(heads):
         end = heads[k + 1].start() if k + 1 < len(heads) else len(text)
-        out.append((m.group(1), _INSTR.findall(text, m.end(), end)))
+        out.append((m.group(1), [(int(a, 16), i) for a, i in
+                                 _INSTR.findall(text, m.end(), end)]))
     return out
 
 
@@ -164,12 +170,34 @@ def instance_name(demangled: str) -> str:
     return demangled
 
 
-def count(instrs: List[str]) -> dict:
-    """The mix of one function: total, per class, FFMA, FCHK, LDL, STL,
-    and the opcodes of class "other" by name."""
+def loops(instrs: List[Tuple[int, str]]) -> List[dict]:
+    """Each backward branch of one function ((address, text) in address
+    order) with the opcodes from its target to it: {"from", "to" (hex
+    addresses), "mix" ({opcode: n})}. A branch to itself (the trap after
+    EXIT) is no loop."""
+    out = []
+    for addr, ins in instrs:
+        m = _BRA_TARGET.match(_PRED.sub("", ins.strip()))
+        if m is None or int(m.group(1), 16) >= addr:
+            continue
+        start = int(m.group(1), 16)
+        mix: Dict[str, int] = {}
+        for a, i in instrs:
+            if start <= a <= addr:
+                op = opcode(i)
+                mix[op] = mix.get(op, 0) + 1
+        out.append({"from": hex(start), "to": hex(addr),
+                    "mix": dict(sorted(mix.items()))})
+    return out
+
+
+def count(instrs: List[Tuple[int, str]]) -> dict:
+    """The mix of one function ((address, text) of each instruction):
+    total, per class, FFMA, FCHK, LDL, STL, the opcodes of class "other"
+    by name, and its loops."""
     classes = dict.fromkeys(CLASS_ORDER, 0)
     ops: Dict[str, int] = {}
-    for ins in instrs:
+    for _, ins in instrs:
         op = opcode(ins)
         ops[op] = ops.get(op, 0) + 1
         classes[_CLASS_OF.get(op, "other")] += 1
@@ -185,7 +213,7 @@ def count(instrs: List[str]) -> dict:
         source = "not attributed (no FCHK: no division routine)"
     return {"total": len(instrs), "classes": classes, "ffma": ffma,
             "fchk": fchk, "ldl": ops.get("LDL", 0), "stl": ops.get("STL", 0),
-            "ffma_source": source, "other_ops": other}
+            "ffma_source": source, "other_ops": other, "loops": loops(instrs)}
 
 
 def census(text: str) -> Dict[str, dict]:
