@@ -150,11 +150,28 @@ Phases (each prints its own lines; any failure exits non-zero):
    [cuda:0, cuda:0], host stealing off, through the short freq, leaf,
    long and wide (ladder) routes, every pair byte-equal to the oracle
    (computed on the host pool while the card runs), every queue
-   launching; the batcher's stats line printed.
+   launching; the batcher's stats line printed;
+24. resume (`resume`): checkpoint/resume of divide-and-conquer, sim10k
+   --rooted -m 2000 with the device forced, in this process: a -k run
+   (md5 of one native process, one state checkpoint a subtree), its
+   --resume --overwrite rerun (the same md5, every subtree resumed, only
+   the meta-tree merge's pairs launched), a --resume run without -k whose
+   update_and_write_alignment raises on its second call (the error comes
+   up, every unexpanded subalignment stays) and its --overwrite rerun
+   (every subtree resumed, the same md5);
+25. merge (`merge`): merge mode (-f) over the first resume run's
+   subalignments (one MSA of ~2000 rows a subtree), the device forced,
+   md5-equal to --backend native in this process;
+26. cross-level (`crosslevel`, TWILIGHT_CROSS_LEVEL=1): sim2k --rooted
+   forced (with TWILIGHT_PROFILE: the batcher's call lines printed, and
+   the rounds counted), with no --backend flag, with --length-deviation
+   0.02 forced, and forced over two queues of cuda:0, each held to its
+   golden md5, each launching (both queues), each printed beside the e2e
+   phase's per-level run of the same flags.
 
 `--only a,b,...` runs some phases (build always runs; products needs
-workflow) and prints no kernels line. Each phase's wall is printed
-([timing]).
+workflow, merge needs resume) and prints no kernels line. Each phase's
+wall is printed ([timing]).
 
 Only the port is imported (twilight_tpu_torch); its simulator makes the
 sets, and the inputs, launches, host references and bounds of the kernel
@@ -920,6 +937,17 @@ def _md5(path):
         return hashlib.md5(f.read()).hexdigest()
 
 
+def device_env(force, steal):
+    """TWILIGHT_FORCE_DEVICE when `force`, TWILIGHT_NO_STEAL unless
+    `steal`; neither otherwise."""
+    os.environ.pop("TWILIGHT_FORCE_DEVICE", None)
+    os.environ.pop("TWILIGHT_NO_STEAL", None)
+    if force:
+        os.environ["TWILIGHT_FORCE_DEVICE"] = "1"
+    if not steal:
+        os.environ["TWILIGHT_NO_STEAL"] = "1"
+
+
 def e2e_run(torch, runs, td, label, argv, golden, device=True, force=True,
             steal=False, task0_errors=0):
     """One run of the port's entry point, held to md5 `golden` (None: no
@@ -928,17 +956,13 @@ def e2e_run(torch, runs, td, label, argv, golden, device=True, force=True,
     per level), and unless `steal` no host thread steals a pair
     (TWILIGHT_NO_STEAL). A forced run must resolve every non-empty pair
     on the device, bar those stolen and exactly `task0_errors` pairs that
-    the reference defers at task 0 (the device's error is their answer).
+    the reference defers at task 0 (the device's error is their answer;
+    None: as many as the batcher counted, printed with the run).
     The launch count is zeroed just before the run and read just after."""
     from twilight_tpu_torch import cli
     from twilight_tpu_torch.ops import talco_cuda
     out = os.path.join(td, label + ".aln")
-    os.environ.pop("TWILIGHT_FORCE_DEVICE", None)
-    os.environ.pop("TWILIGHT_NO_STEAL", None)
-    if force:
-        os.environ["TWILIGHT_FORCE_DEVICE"] = "1"
-    if not steal:
-        os.environ["TWILIGHT_NO_STEAL"] = "1"
+    device_env(force, steal)
     talco_cuda.talco_align.launches = 0
     t0 = time.time()
     rc, kernel = cli.run(argv + ["-o", out])
@@ -961,6 +985,8 @@ def e2e_run(torch, runs, td, label, argv, golden, device=True, force=True,
               f"counted {st['launches']}")
     if device and force:
         check(launches > 0, f"e2e/{label}: the kernel never launched")
+        if task0_errors is None:
+            task0_errors = st["task0_errors"]
         check(st["task0_errors"] == task0_errors,
               f"e2e/{label}: {st['task0_errors']} task-0 errors, expected "
               f"{task0_errors}")
@@ -1486,6 +1512,223 @@ def phase_multidevice(torch, td):
 
 
 # ---------------------------------------------------------------------------
+# the CLI's last routes: checkpoint/resume, merge mode, cross-level rounds
+# ---------------------------------------------------------------------------
+
+class _Tee:
+    """sys.stderr's stand-in that keeps what is written and passes it on
+    (the port's threads print through sys.stderr too)."""
+
+    def __init__(self, real):
+        self.real, self.parts = real, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.real.write(text)
+
+    def flush(self):
+        self.real.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def tee_stderr():
+    """A context in which what is written to sys.stderr is also kept (its
+    value's text())."""
+    import contextlib
+    return contextlib.redirect_stderr(_Tee(sys.stderr))
+
+
+def _subalignments(d):
+    """The unexpanded subalignments (subtree-<i>.subalignment.aln) in d."""
+    return sorted(f for f in os.listdir(d)
+                  if f.endswith(".subalignment.aln"))
+
+
+def phase_resume(torch, td):
+    """Checkpoint/resume of divide-and-conquer on the card: sim10k with its
+    true tree, --rooted -m 2000, --backend cuda, the device forced, through
+    the entry point in this process, in four runs. (1) -k -d <dir>: md5
+    GOLDEN_MULTIHOST (one native process's), one state checkpoint a
+    subtree. (2) The same with --resume --overwrite: the same md5, every
+    subtree resumed, and only the meta-tree merge's pairs launched (fewer
+    launches than run 1, none of them leaf). (3) A fresh dir with
+    --resume and no -k, the port's update_and_write_alignment patched to
+    raise on its second call: the injected error must come up through the
+    entry point, every unexpanded subalignment must still be there and no
+    output written. (4) The same command with --overwrite: every subtree
+    resumed, the same md5, the temp dir removed."""
+    from twilight_tpu_torch import cli
+    from twilight_tpu_torch.seqio import writer
+    argv = ["--backend", "cuda"] + simulate(td, *SIM10K) \
+        + ["--rooted", "-m", str(MULTIHOST_M)]
+    runs = {}
+
+    def run(label, extra):
+        with tee_stderr() as err:
+            rec = e2e_run(torch, runs, td, label, argv + extra,
+                          GOLDEN_MULTIHOST, task0_errors=None)
+        rec["resumed"] = err.text().count("Resumed subtree")
+        return rec, err.text()
+
+    keep = os.path.join(td, "resume_keep")
+    first, text = run("sim10k_m2000", ["-k", "-d", keep])
+    parts = int(re.search(r"Decomposed the tree into (\d+) subtrees",
+                          text).group(1))
+    states = [f for f in os.listdir(keep) if f.endswith(".state.npz")]
+    check(len(states) == parts and first["resumed"] == 0,
+          f"resume: {len(states)} checkpoints of {parts} subtrees, "
+          f"{first['resumed']} resumed in the first run")
+    again, _ = run("sim10k_m2000_resumed",
+                   ["-k", "-d", keep, "--resume", "--overwrite"])
+    check(again["resumed"] == parts,
+          f"resume: {again['resumed']} of {parts} subtrees resumed")
+    check(0 < again["launches"] < first["launches"]
+          and again["leaf_launches"] == 0 and again["pairs"] == parts - 1,
+          f"resume: the resumed run made {again['launches']} launches "
+          f"({again['leaf_launches']} leaf) for {again['pairs']} pairs, "
+          f"the first {first['launches']}; want only the meta-tree's "
+          f"{parts - 1} pairs")
+
+    crash_dir = os.path.join(td, "resume_crash")
+    label = "sim10k_m2000_after_crash"
+    crash_args = argv + ["-d", crash_dir, "--resume", "-o",
+                         os.path.join(td, label + ".aln")]
+    real, calls, seen = writer.update_and_write_alignment, [0], None
+
+    def crashing(*args):
+        total = real(*args)
+        calls[0] += 1
+        if calls[0] == 2:
+            raise RuntimeError("injected merge-phase crash")
+        return total
+
+    device_env(True, False)
+    writer.update_and_write_alignment = crashing
+    t0 = time.time()
+    try:
+        cli.run(crash_args)
+    except RuntimeError as e:
+        seen = str(e)
+    finally:
+        writer.update_and_write_alignment = real
+    crash_s = time.time() - t0
+    check(seen == "injected merge-phase crash",
+          f"resume: the injected error did not come up ({seen!r})")
+    subs = _subalignments(crash_dir)
+    check(len(subs) == parts and not os.path.exists(crash_args[-1]),
+          f"resume: {len(subs)} unexpanded subalignments of {parts} after "
+          "the crash, or an output written")
+    after, _ = run(label, ["-d", crash_dir, "--resume", "--overwrite"])
+    check(after["resumed"] == parts and not os.path.exists(crash_dir),
+          f"resume: {after['resumed']} of {parts} subtrees resumed after "
+          "the crash, or the temp dir left")
+    res = {"subtrees": parts, "keep": keep, "crash_s": crash_s,
+           "runs": {k: {f: v[f] for f in ("wall_s", "launches", "pairs",
+                                          "leaf_launches", "task0_errors",
+                                          "resumed")}
+                    for k, v in runs.items()}}
+    print("[resume] " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_merge(torch, td, resumed):
+    """Merge mode (-f) on the card: the resume phase's first run's
+    unexpanded subalignments (one MSA of ~2000 rows a subtree) copied into
+    a directory and merged with the device forced, then with --backend
+    native, in this process: the md5s equal, the card run launching."""
+    import shutil
+    msas = os.path.join(td, "merge_msas")
+    os.makedirs(msas)
+    subs = _subalignments(resumed["keep"])
+    check(len(subs) == resumed["subtrees"],
+          f"merge: {len(subs)} subalignments of {resumed['subtrees']}")
+    rows = []
+    for f in subs:
+        shutil.copy(os.path.join(resumed["keep"], f), msas)
+        rows.append(len(_read_fasta(os.path.join(msas, f))))
+    runs = {}
+    cuda = e2e_run(torch, runs, td, "merge_cuda",
+                   ["--backend", "cuda", "-f", msas, "-d",
+                    os.path.join(td, "merge_tmp_cuda")], None)
+    native = e2e_run(torch, runs, td, "merge_native",
+                     ["--backend", "native", "-f", msas, "-d",
+                      os.path.join(td, "merge_tmp_native")], None,
+                     device=False)
+    check(cuda["md5"] == native["md5"], f"merge: cuda md5 {cuda['md5']} "
+          f"!= native {native['md5']}")
+    print(f"[merge] {len(subs)} MSAs of {rows} rows: cuda "
+          f"{cuda['wall_s']:.3f} s ({cuda['launches']} launches, "
+          f"{cuda['pairs']} pairs), native {native['wall_s']:.3f} s; md5 "
+          f"{cuda['md5']}", flush=True)
+    return {"rows": rows, "cuda": cuda, "native": native}
+
+
+def phase_crosslevel(torch, td, per_level):
+    """Cross-level rounds (TWILIGHT_CROSS_LEVEL=1) on sim2k --rooted: the
+    device forced (-v, with TWILIGHT_PROFILE: the batcher's call lines,
+    printed here under [crosslevel], and the rounds), no --backend flag
+    with stealing on, --length-deviation 0.02 forced (the order-sensitive
+    deferral path, GOLDEN_SIM2K_DEFER), and forced over two queues of
+    cuda:0 as phase_multidevice builds them (both must launch). Each run's
+    launches and wall are printed beside the e2e phase's per-level run of
+    the same flags, when that phase ran."""
+    from twilight_tpu_torch import cli
+    from twilight_tpu_torch.ops.device_kernel import DeviceTalco
+    sim = simulate(td, *SIM2K) + ["--rooted"]
+    runs = {}
+    os.environ["TWILIGHT_CROSS_LEVEL"] = "1"
+    real = cli.make_device_kernel
+    try:
+        os.environ["TWILIGHT_PROFILE"] = "1"
+        with tee_stderr() as err:
+            forced = e2e_run(torch, runs, td, "sim2k_xl_cuda",
+                             ["--backend", "cuda", "-v"] + sim,
+                             GOLDEN_SIM2K)
+        os.environ.pop("TWILIGHT_PROFILE")
+        text = err.text()
+        calls = re.findall(r"^ *\[dev\] call done: .*$", text, re.M)
+        rounds = len(re.findall(r"^Round \d+, aligned", text, re.M))
+        check(calls and rounds, f"crosslevel: {len(calls)} call lines, "
+              f"{rounds} rounds")
+        for line in calls:
+            print(f"[crosslevel] {line.strip()}", flush=True)
+        forced["rounds"] = rounds
+        dflt = e2e_run(torch, runs, td, "sim2k_xl_default", sim,
+                       GOLDEN_SIM2K, force=False, steal=True)
+        check(dflt["launches"] > 0,
+              "crosslevel: the default backend made no launch")
+        e2e_run(torch, runs, td, "sim2k_xl_defer_cuda",
+                ["--backend", "cuda", "--length-deviation", "0.02"] + sim,
+                GOLDEN_SIM2K_DEFER)
+        cli.make_device_kernel = lambda opt, param: DeviceTalco(
+            opt, param, ["cuda:0", "cuda:0"])
+        two = e2e_run(torch, runs, td, "sim2k_xl_two_queues",
+                      ["--backend", "cuda"] + sim, GOLDEN_SIM2K)
+    finally:
+        cli.make_device_kernel = real
+        os.environ.pop("TWILIGHT_CROSS_LEVEL", None)
+        os.environ.pop("TWILIGHT_PROFILE", None)
+    by = two["launches_by_device"]
+    check(len(by) == 2 and all(by), f"crosslevel: launches by queue {by}")
+    pairs = (("sim2k_xl_cuda", "sim2k_cuda"),
+             ("sim2k_xl_default", "sim2k_default"),
+             ("sim2k_xl_defer_cuda", "sim2k_defer_cuda"),
+             ("sim2k_xl_two_queues", None))
+    for xl, base in pairs:
+        r = runs[xl]
+        b = (per_level or {}).get(base)
+        was = (f"; per level {b['wall_s']:.3f} s, {b['launches']} launches"
+               if b else "")
+        print(f"[crosslevel] {xl}: {r['wall_s']:.3f} s, {r['launches']} "
+              f"launches{was}", flush=True)
+    print(f"[crosslevel] sim2k forced: {rounds} rounds, two queues "
+          f"{by}", flush=True)
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # the last modules: SASS census, graft entry, sharding, dry run
 # ---------------------------------------------------------------------------
 
@@ -1815,7 +2058,8 @@ def phase_frontdoor(td):
 PHASES = ("parity", "long_parity", "wide", "time", "long_time", "gate",
           "probes", "e2e", "long_e2e", "workflow", "products", "placement",
           "multihost", "multidevice", "fuzz", "bench", "quality",
-          "frontdoor", "census", "entry", "dryrun")
+          "frontdoor", "census", "entry", "dryrun", "resume", "merge",
+          "crosslevel")
 
 
 def main(argv=None):
@@ -1823,16 +2067,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="the port's smoke test on one "
                                  "GPU (module doc)")
     ap.add_argument("--only", help="comma-separated phases to run (of "
-                    f"{', '.join(PHASES)}; products needs workflow); the "
-                    "kernels' JSON line needs them all")
+                    f"{', '.join(PHASES)}; products needs workflow, merge "
+                    "needs resume); the kernels' JSON line needs them all")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
     if only is not None and (not only <= set(PHASES)
                              or ("products" in only
-                                 and "workflow" not in only)):
+                                 and "workflow" not in only)
+                             or ("merge" in only and "resume" not in only)):
         print(f"chip_smoke: --only {args.only}: phases are "
-              f"{', '.join(PHASES)}, and products needs workflow",
-              file=sys.stderr)
+              f"{', '.join(PHASES)}; products needs workflow, merge needs "
+              "resume", file=sys.stderr)
         return 2
 
     def want(phase):
@@ -1938,6 +2183,9 @@ def main(argv=None):
         place = run("placement", phase_placement, torch, td)
         multihost = run("multihost", phase_multihost, torch, td)
         multidevice = run("multidevice", phase_multidevice, torch, td)
+        resumed = run("resume", phase_resume, torch, td)
+        merged = run("merge", phase_merge, torch, td, resumed)
+        xl = run("crosslevel", phase_crosslevel, torch, td, runs)
         frontdoor = run("frontdoor", phase_frontdoor, td)
     ok = json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": count}})
@@ -2020,6 +2268,23 @@ def main(argv=None):
     print(f"[summary] multidevice sim2k forced: one queue "
           f"{multidevice['walls']['one']} s, two queues on cuda:0 "
           f"{multidevice['walls']['two']} s; card {smi_line}", flush=True)
+    res = {k: (v["wall_s"], v["launches"], v["resumed"])
+           for k, v in resumed["runs"].items()}
+    print(f"[summary] resume sim10k -m {MULTIHOST_M}, forced, (wall s, "
+          f"launches, subtrees resumed): {json.dumps(res)}; merge of "
+          f"{len(merged['rows'])} subalignments: cuda "
+          f"{merged['cuda']['wall_s']:.3f} s ({merged['cuda']['launches']} "
+          f"launches) vs native {merged['native']['wall_s']:.3f} s; card "
+          f"{smi_line}", flush=True)
+    print("[summary] cross-level sim2k (wall s, launches) against per "
+          "level: " + "; ".join(
+              f"{k} {xl[k]['wall_s']:.3f}, {xl[k]['launches']} vs "
+              f"{runs[b]['wall_s']:.3f}, {runs[b]['launches']}"
+              for k, b in (("sim2k_xl_cuda", "sim2k_cuda"),
+                           ("sim2k_xl_default", "sim2k_default"),
+                           ("sim2k_xl_defer_cuda", "sim2k_defer_cuda")))
+          + f"; forced {xl['sim2k_xl_cuda']['rounds']} rounds; card "
+          f"{smi_line}", flush=True)
     print(f"[summary] fuzz, seed {FUZZ_SEED}: {fuzz['pairs']} pairs "
           f"{json.dumps(fuzz['by_route'])}, error codes "
           f"{json.dumps(fuzz['errors'])}, none differs from the oracle; card "

@@ -28,12 +28,24 @@ pairs, striped over the devices (device d takes group[d::n]), so that
 every device's launch holds pairs of similar sizes. Stealing and the
 ladder work on the launches of every device alike; the bits do not depend
 on which device aligned a pair.
+
+Under TWILIGHT_PROFILE (read at each call) it prints to stderr, in the
+JAX batcher's `[dev]` lines' place (its device_kernel.py:538, 675, 695,
+768): one line a launch, when its round ends (route, padlen, the pairs'
+widest ladder width, --pair-batch, pairs, and the seconds of packing,
+of issuing the launch, and of the host's wait for its result; a launch
+whose pairs were all stolen is never waited for), the round's blocked
+time on launches when above 1 s, and one line a call (pairs resolved on
+the card and stolen by the host, the host's steal seconds summed over
+its threads, launches, wall). Wide launches are the JAX batcher's
+escalated buckets: their route says so.
 """
 from __future__ import annotations
 
 import os
 import sys
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -247,7 +259,8 @@ def out_views(buf: torch.Tensor, batch: int, padlen: int):
 
 
 class _Launch:
-    __slots__ = ("chunk", "staging", "host_out", "event", "padlen")
+    __slots__ = ("chunk", "staging", "host_out", "event", "padlen",
+                 "pack_s", "launch_s", "wait_s")
 
     def __init__(self, chunk, staging, host_out, event, padlen):
         self.chunk = chunk
@@ -255,6 +268,8 @@ class _Launch:
         self.host_out = host_out
         self.event = event
         self.padlen = padlen
+        self.pack_s = self.launch_s = 0.0
+        self.wait_s = None          # never waited for: all stolen
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -327,6 +342,7 @@ class DeviceTalco:
                                   self.streams[q])
         cuda = device.type == "cuda"
         self.stats["launches_by_device"][q] += 1
+        t0 = time.perf_counter()
         if leaf:
             st = pack_batch_leaf(chunk, prepared, metas, padlen, self.p,
                                  self.param, flen_param, xdrop,
@@ -338,13 +354,17 @@ class DeviceTalco:
         b = len(chunk)
         nbytes = b * 2 * padlen + b * TAIL * 4
         scratch = int(st.offs[-1])
+        t1 = time.perf_counter()
         if not cuda:
             host = torch.empty(nbytes, dtype=torch.uint8)
             talco_cuda.talco_align(
                 st.ints, st.floats, st.offs, st.ref, st.qry, matrix,
                 p=self.p, marker=self.marker, scratch_bytes=scratch,
                 out=out_views(host, b, padlen))
-            return _Launch(chunk, st, host, None, padlen)
+            launch = _Launch(chunk, st, host, None, padlen)
+            launch.pack_s = t1 - t0
+            launch.launch_s = time.perf_counter() - t1
+            return launch
         with torch.cuda.device(device), torch.cuda.stream(stream):
             dev = st.views(st.buf.to(device, non_blocking=True))
             obuf = torch.empty(nbytes, dtype=torch.uint8, device=device)
@@ -358,7 +378,10 @@ class DeviceTalco:
             ev = torch.cuda.Event()
             ev.record(stream)
         self.stats["launches"] += 1
-        return _Launch(chunk, st, host, ev, padlen)
+        launch = _Launch(chunk, st, host, ev, padlen)
+        launch.pack_s = t1 - t0
+        launch.launch_s = time.perf_counter() - t1
+        return launch
 
     def _host_align(self, prep, meta, task):
         """Reference retry ladder on the native host kernel (the same bits
@@ -374,7 +397,9 @@ class DeviceTalco:
 
     def _collect(self, launch, results, prepared, task, lock, claimed,
                  pending, flen_param, xdrop, note) -> None:
+        t0 = time.perf_counter()
         launch.wait()
+        launch.wait_s = time.perf_counter() - t0
         b = len(launch.chunk)
         paths, tail = out_views(launch.host_out, b, launch.padlen)
         paths, tail = paths.numpy(), tail.numpy()
@@ -428,6 +453,12 @@ class DeviceTalco:
             else:
                 pending.append(i)
         no_steal = bool(os.environ.get("TWILIGHT_NO_STEAL"))
+        profile = bool(os.environ.get("TWILIGHT_PROFILE"))
+        t_call0 = time.perf_counter()
+        on_device0 = self.stats["pairs_on_device"]
+        stolen0 = self.stats["host_stolen"]
+        launches0 = sum(self.stats["launches_by_device"])
+        steal_s = [0.0]     # the host's steal seconds, over its threads
 
         rounds = 0
         while pending and rounds < MAX_ROUNDS:
@@ -457,6 +488,7 @@ class DeviceTalco:
                     results[i] = None
                     note(i, None)
             launches: List[_Launch] = []
+            routes = []         # (route, widest ladder width) a launch
             n_dev = len(self.devices)
             for (long_, wide, leaf), idxs in buckets.items():
                 # size-sorted, so a launch's blocks carry similar work
@@ -474,6 +506,12 @@ class DeviceTalco:
                         for chunk, padlen in split_launches(
                                 group[q::n_dev], prepared, flen_param, rows,
                                 esz, self.batch, marker=self.marker):
+                            routes.append((
+                                ("long" if long_ else "short")
+                                + (" leaf" if leaf else " freq")
+                                + (" wide" if wide else "")
+                                + (f" q{q}" if n_dev > 1 else ""),
+                                max(flen_param[i] for i in chunk)))
                             launches.append(self._launch(
                                 chunk, padlen, prepared, metas, task, leaf,
                                 flen_param, xdrop, q))
@@ -498,9 +536,11 @@ class DeviceTalco:
                 return None
 
             def _steal_one(i):
+                t0 = time.perf_counter()
                 results[i] = self._host_align(prepared[i], metas[i], task)
                 with lock:
                     self.stats["host_stolen"] += 1
+                    steal_s[0] += time.perf_counter() - t0
                 note(i, results[i])
 
             def _stealer():
@@ -532,10 +572,33 @@ class DeviceTalco:
             finally:
                 for th in stealers:
                     th.join()
+            if profile:
+                self._print_round(launches, routes)
         for i in pending:
             results[i] = None
             note(i, None)
+        if profile:
+            print(f"    [dev] call done: pairs={n} "
+                  f"device={self.stats['pairs_on_device'] - on_device0} "
+                  f"host-stolen={self.stats['host_stolen'] - stolen0} "
+                  f"steal_dp={steal_s[0]:.3f}s launches="
+                  f"{sum(self.stats['launches_by_device']) - launches0} "
+                  f"wall={time.perf_counter() - t_call0:.3f}s",
+                  file=sys.stderr)
         return results
+
+    def _print_round(self, launches, routes) -> None:
+        """The TWILIGHT_PROFILE lines of one round's launches (module
+        doc)."""
+        for ln, (route, width) in zip(launches, routes):
+            wait = "-" if ln.wait_s is None else f"{ln.wait_s:.3f}s"
+            print(f"    [dev] launch {route} p{ln.padlen} w{width} "
+                  f"b{self.batch} n{len(ln.chunk)}: pack={ln.pack_s:.3f}s "
+                  f"launch={ln.launch_s:.3f}s wait={wait}", file=sys.stderr)
+        blocked = sum(ln.wait_s or 0.0 for ln in launches)
+        if blocked > 1.0:
+            print(f"    [dev] blocked {blocked:.1f}s on launches",
+                  file=sys.stderr)
 
 
 def cpu_device_count() -> int:

@@ -27,6 +27,7 @@ package's host code.
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import time
 from typing import List, Optional, Sequence
@@ -52,6 +53,15 @@ OUT_BLOCK_BYTES = 1 << 30
 # the JAX package's cut-off (seconds of host estimate) above which its
 # host Gram product runs in row blocks; kept so the bytes stay its bytes
 _HOST_ROW_BLOCK_EST_S = 20.0
+
+
+def _profile(line: str) -> None:
+    """One of the JAX estimator's TWILIGHT_PROFILE lines (its
+    estimate.py:148, 392, 401): the k-mer time, the distance matrix's
+    path (the Gram product always on the host; the msa counts on the
+    card or the host) and the NJ/PartTree time."""
+    if os.environ.get("TWILIGHT_PROFILE"):
+        print(f"  [profile] {line}", file=sys.stderr)
 
 
 def host_estimate_s(n: int, m: int, k: int) -> float:
@@ -243,14 +253,17 @@ def msa_distances(rows: Sequence[str], max_cols: int = 4096,
         letters = msa_letters(mat)
         host_est_s = host_estimate_s(n, n,
                                      mat.shape[1] * (len(letters) + 1))
-        if on_card(device, host_est_s):
+        card = on_card(device, host_est_s)
+        if card:
             m, b = pair_counts_on(mat, None, letters, device)
         else:
             m, b = host_msa_counts(mat, is_gap, letters)
+        _profile(f"distance matrix: {'card' if card else 'host'} path")
         d = (b.astype(np.float64) - m.astype(np.float64)) \
             / np.maximum(b.astype(np.float64), 1.0)
         np.fill_diagonal(d, 0.0)
         return d
+    _profile("distance matrix: host path")
     d = np.zeros((n, n), dtype=np.float64)
     for i in range(n):
         both = ~(is_gap[i] | is_gap)          # [n, cols]
@@ -321,12 +334,15 @@ def build_guide_tree(names: Sequence[str], seqs: Sequence[str],
         prof = kmer_profiles(seqs, k=k)
         t1 = time.time()
         steps.append(("kmer", t1 - t0))
+        _profile(f"k-mer profiles: {t1 - t0:.1f}s")
         dist = pairwise_distances(prof)
         steps.append(("gram", time.time() - t1))
+        _profile("distance matrix: host path")
     rng = np.random.default_rng(seed)
     print(f"{_TAG} estimated distances for {len(names)} sequences "
           f"in {time.time() - t0:.1f}s", file=sys.stderr)
     t1 = time.time()
     nwk = _nj_or_recurse(dist, list(names), nj_cap, rng)
     steps.append(("nj", time.time() - t1))
+    _profile(f"NJ/PartTree: {time.time() - t1:.1f}s")
     return nwk
