@@ -17,14 +17,18 @@ Phases (each prints its own lines; any failure exits non-zero):
 3. kernel parity (`parity`): 212 seeded profile pairs (nucleotide and
    protein, freq and leaf routes, weighted profiles with gap rows,
    gap_char 0, marker 1024 and 64, lengths 30-2048, unrelated pairs giving
-   errors 1 and 2) through the CUDA kernel, held byte-for-byte against
-   the NumPy oracle (talco_np.align_freq) and against the kernel's plain
-   PyTorch version on CPU tensors;
+   errors 1 and 2), and 28 freq pairs at tasks 0 and 3 whose sides stand
+   for 10000-22135 sequences (SCALE_COUNTS: products and ref_num *
+   qry_num past 2^24, gap_char 0 above 10000), through the CUDA kernel,
+   held byte-for-byte against the NumPy oracle (talco_np.align_freq) and
+   against the kernel's plain PyTorch version on CPU tensors;
 4. long parity (`long_parity`, the route of the TPU's K4, and of K5 above
    padlen 32768): 68 pairs of 2049-6000 columns, 5 of 25-31 kb and 6 of
    40-70 kb (padlen past 65536), nt and protein, freq and leaf, and 14
    pairs of 2600-4000 columns at X-drop 60000 and marker 8192 whose
-   one-tile band provably crosses W_S (rows past it in scratch), in
+   one-tile band provably crosses W_S (rows past it in scratch), and 19
+   freq pairs of 2049-6000 and 13000-20600 columns whose sides stand for
+   10000-22135 sequences (as in the parity phase), in
    launches cut and padded as the batcher cuts them, held byte for byte
    against the native host kernel (bit-equal to the oracle by the repo's
    own tests), those up to 3000 columns also against the plain version;
@@ -35,7 +39,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 6. kernel time at the main path's shapes (`time`, batch 128, padlen
    2048): nt freq, nt leaf and protein freq, ms/pair with H2D + kernel +
    D2H and resident and us per diagonal, beside the plain version's time
-   on CUDA tensors for 2 of the pairs;
+   on CUDA tensors for 1 of the pairs;
 7. long time (`long_time`): nt freq and nt leaf at 29-30 kb, protein freq
    at 2.9-3 kb, each at the launch size the batcher picks, with DP
    Gcells/s, and the plain version's time for one ~3000-column pair;
@@ -89,9 +93,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    1 kb), 2 iterations, default backend: each step's wall (k-mer, Gram on
    the host, NJ/PartTree, alignment 0, msa distances, NJ, alignment 1),
    the launches of each alignment and one count product on the card;
-   then the whole workflow again with --backend native, whose iter0.nwk,
-   iter1.nwk and final md5 the default run must equal (SP score
-   printed); and what a fresh DP batcher costs an iteration;
+   its iter0.nwk, iter1.nwk and final md5 must equal those of the whole
+   workflow with --backend native (GOLDEN_WF10K_*, recorded on the H100's
+   host) (SP score printed); and what a fresh DP batcher costs an
+   iteration;
 13. products (`products`): the msa counts of the workflow's iter0.aln and
    placement's counts of 5000 x 5000 rows of its final MSA, each on the
    card (resident, with copies, the copies alone) against the host NumPy
@@ -125,8 +130,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 19. quality (`quality`): the quality harness (tools/quality_harness.py)
    at sim2k's shape (-n 2000 -l 1000 --seed 2) with --backend cuda and
    --backend native as two processes side by side, started after the wide
-   phase so that they run beside the parity, long parity and fuzz phases'
-   host references (which time nothing): SP per pair of each strategy
+   phase so that they run beside the dry run and the parity, long parity
+   and fuzz phases' host references (which time nothing): SP per pair of
+   each strategy
    (true tree, placement with the tree, grafting, iterative), every output
    md5-equal between the two, the cuda run launching;
 20. front door (`frontdoor`): prot_16 with --backend native through
@@ -167,10 +173,30 @@ Phases (each prints its own lines; any failure exits non-zero):
    the rounds counted), with no --backend flag, with --length-deviation
    0.02 forced, and forced over two queues of cuda:0, each held to its
    golden md5, each launching (both queues), each printed beside the e2e
-   phase's per-level run of the same flags.
+   phase's per-level run of the same flags;
+27. scale (`scale`): sim40k (40000 x 1 kb, true tree) --rooted -m 20000,
+   three subtrees of 10499-17865 sequences at 13-15k columns and a
+   meta-tree merge whose sides pass 10000 sequences, 20587 columns in all,
+   through the entry point in this process: forced onto the card with no
+   stealing (md5 GOLDEN_SIM40K, every non-empty pair on the card or
+   deferred at task 0, pairs packed with a side above 10000
+   sequences counted through a wrapped pack_batch, each with gap_char 0;
+   its DP sides stay within 2048 columns, since the gappy columns are
+   removed first, so it makes no long launch), then as a user runs it (no
+   --backend flag, no knobs; the same md5); each run's wall, launches by
+   route, stolen pairs, peak device memory, RSS, subtrees, widths and
+   output bytes printed, the output deleted once its md5 is taken;
+28. scale_r1 (`scale_r1`, only when --only names it): sim40k forced with
+   -r 1 (no column removed: long and wide launches up to padlen 9728,
+   pairs of a side above 10000 sequences among them; md5
+   GOLDEN_SIM40K_R1, both packages' native md5);
+29. scale100k (`scale100k`, only when --only names it): the forced and
+   the default run on sim100k (100000 x 1 kb, 7 subtrees, 28567 columns,
+   a 2.86 GB output), md5 GOLDEN_SIM100K.
 
 `--only a,b,...` runs some phases (build always runs; products needs
-workflow, merge needs resume) and prints no kernels line. Each phase's
+workflow, merge needs resume; scale_r1 and scale100k run only when
+named) and prints no kernels line. Each phase's
 wall is printed ([timing]).
 
 Only the port is imported (twilight_tpu_torch); its simulator makes the
@@ -202,19 +228,57 @@ GOLDEN_P12 = "f800c5b151b27b3e47881b1865b46a18"   # --type p -n 12 -l 3000
 # sim10k --rooted -m 2000 --backend native in one process (the H100's host
 # in every call since it was first run, and a CPU host)
 GOLDEN_MULTIHOST = "5241d7948d7fc8f4acca92ff7f6608dd"
+# simulate -n 40000 -l 1000 --seed 0, then --rooted -m 20000 -d <fresh dir>
+# --backend native: python -m twilight_tpu_torch and python -m
+# twilight_tpu give it alike (3 subtrees, 40000 x 20587 columns)
+GOLDEN_SIM40K = "b340ec564d709a48f40057974be84212"
+# the same with -r 1 (no gappy column removed before the DP; 40000 x 10235
+# columns), both packages alike
+GOLDEN_SIM40K_R1 = "a7b4709bb51a9f6bf5202fc8f7eca757"
+# python -m twilight_tpu_torch.workflow's iterative mode on sim10k, two
+# iterations, --backend native (the H100's host): iter0.nwk and iter1.nwk
+# (md5 of the text without its closing newline) and the final MSA; the
+# default backend's run must give the same bytes
+GOLDEN_WF10K_TREE0 = "205b2b6eaf8368788995498902130863"
+GOLDEN_WF10K_TREE1 = "4a9af4ee9fd0547466ceafa485264fe4"
+GOLDEN_WF10K = "622070070421035d02b9598b3e642396"
+# the same with -n 100000 (7 subtrees, 100000 x 28567 columns)
+GOLDEN_SIM100K = "573154ec7f3c37edc752c76e90863493"
 KERNEL_SOURCE = "twilight_tpu_torch/ops/csrc/talco_xdrop.cu"
 REPLACES = "twilight_tpu/ops/talco_pallas_g8.py:1672"
 REPLACES_LONG = "twilight_tpu/ops/talco_pallas_g8.py:1556"   # hbm_in
 REPLACES_WIDE = "twilight_tpu/ops/talco_pallas.py:579"
-PLAIN_SUBSET = 2              # pairs timed through the plain version
+# sides' counts of the parity phases' scaled freq pairs: the exact
+# boundary of gap_char 0 (10000 / 10001) and sim40k's subtree sizes and
+# their sums, whose products and den (ref_num * qry_num) pass 2^24 and
+# round in f32
+SCALE_COUNTS = ((10000, 10001), (10001, 10000), (10000, 10000),
+                (17865, 22135), (22135, 17865), (10499, 11636))
+# (p, leaf, marker, task, pairs, max length, scaled): the parity phase's
+SCALED_SHORT = [(6, False, 1024, 0, 12, 1200, True),
+                (6, False, 1024, 3, 6, 1200, True),
+                (22, False, 1024, 0, 6, 600, True),
+                (22, False, 1024, 3, 4, 600, True)]
+# (p, leaf, task, pairs, min length, max length, scaled): long parity's,
+# up to sim40k's 13-20k-column subtree and meta-tree widths
+SCALED_LONG = [(6, False, 0, 6, 2100, 6000, True),
+               (6, False, 3, 4, 2100, 3000, True),
+               (22, False, 0, 3, 2100, 3000, True),
+               (6, False, 0, 6, 13000, 20600, True)]
+PLAIN_SUBSET = 1              # pairs timed through the plain version
 PLAIN_MAX_COLS = 3000         # long pairs also held to the plain version
 LONG_PLAIN_PAIRS = 12         # at most this many of them
+SCALED_LONG_PLAIN = 4         # and of SCALED_LONG's
 PROBE_PLAIN_TRIPS = (20, 200)  # the plain probes' per-step time
 PROBE_AB_TRIPS = 4000          # a cluster instance against one block
 PROBE_LIVE_WALK_FLOOR = 4096   # above every row maximum at 2 trips
 PROBE_SOURCE = "twilight_tpu_torch/ops/csrc/probe_loop_costs.cu"
 SIM2K = ("sim2k", "-n", "2000", "-l", "1000", "--seed", "0")
 SIM10K = ("sim10k", "-n", "10000", "-l", "1000", "--seed", "0")
+# the scale phases' sets (README's scale runs), each --rooted -m SCALE_M
+SIM40K = ("sim40k", "-n", "40000", "-l", "1000", "--seed", "0")
+SIM100K = ("sim100k", "-n", "100000", "-l", "1000", "--seed", "0")
+SCALE_M = 20000
 MULTIHOST_M = 2000            # the multihost phase's -m (sim10k: 2000 max)
 PROC_TIMEOUT_S = 600          # each process of the multihost phase
 PLACE_ROWS = 5000             # placement counts: 5000 x 5000 rows
@@ -346,22 +410,25 @@ def phase_parity(torch, mp_pool, workers):
     from twilight_tpu_torch.tools.talco_inputs import make_pair, pack
     from twilight_tpu_torch.tools import talco_inputs as ti
     rng = np.random.default_rng(20261016)
-    # (p, leaf, marker, task, pairs, max length)
+    # (p, leaf, marker, task, pairs, max length, sides' counts)
     groups = [(6, False, 1024, 0, 30, 2048), (6, False, 1024, 1, 14, 2048),
               (6, False, 64, 0, 12, 600), (6, True, 1024, 0, 40, 2048),
               (6, True, 64, 0, 12, 600), (22, False, 1024, 0, 30, 2048),
               (22, False, 1024, 1, 10, 1200), (22, False, 64, 0, 12, 600),
               (22, True, 1024, 0, 40, 2048), (22, True, 64, 0, 12, 600)]
+    groups = [g + (False,) for g in groups] + SCALED_SHORT
     launches0 = talco_cuda.talco_align.launches
     jobs, kern = [], []
-    for p, leaf, marker, task, n, maxlen in groups:
+    for p, leaf, marker, task, n, maxlen, scaled in groups:
         param = Params.make("n" if p == 6 else "p")
         prepared, metas, flen, xdrop = [], [], [], []
         for t in range(n):
             length = int(np.exp(rng.uniform(np.log(30), np.log(maxlen))))
             kind = t % 10
-            prep, meta = make_pair(rng, p, leaf, length,
-                                   related=kind not in (3, 7))
+            prep, meta = make_pair(
+                rng, p, leaf, length, related=kind not in (3, 7),
+                counts=SCALE_COUNTS[t % len(SCALE_COUNTS)] if scaled
+                else None)
             prepared.append(prep)
             metas.append(meta)
             # unrelated pairs with a tight X-drop collapse the band (error
@@ -376,7 +443,7 @@ def phase_parity(torch, mp_pool, workers):
                          "task": task, "prep": prepared[i], "meta": metas[i],
                          "flen": flen[i], "xdrop": xdrop[i], "plain": True})
             kern.append((paths[i, :tail[i, 0]].copy(), tail[i].copy(),
-                         (p, leaf, marker, task)))
+                         (p, leaf, marker, task, metas[i][2:])))
     launched = talco_cuda.talco_align.launches - launches0
     check(launched == len(groups),
           f"parity: launch counter advanced {launched}, expected "
@@ -394,7 +461,25 @@ def phase_parity(torch, mp_pool, workers):
     check(len(jobs) >= 200, "parity: fewer than 200 pairs")
     check(errs.get(1, 0) > 0 and errs.get(2, 0) > 0,
           "parity: errors 1 and 2 were not both exercised")
+    _scaled_summary("parity", jobs, 16)
     return max_err
+
+
+def _scaled_summary(label, jobs, want):
+    """Prints the held pairs whose sides stand for thousands of
+    sequences (SCALE_COUNTS): how many, how many of them with a side above
+    10000 (gap_char 0 in the packer and the host references), the largest
+    ref_num * qry_num; at least `want` must have a side above 10000."""
+    big = [j for j in jobs if max(j["meta"][2:4]) >= 10000]
+    zero = sum(max(j["meta"][2:4]) > 10000 for j in big)
+    prod = max((j["meta"][2] * j["meta"][3] for j in big), default=0)
+    print(f"[{label}] {len(big)} pairs of sides counting "
+          f"{sorted({c for j in big for c in j['meta'][2:4]})} sequences, "
+          f"{zero} with gap_char 0 (a side above 10000), largest "
+          f"ref_num * qry_num {prod} (2^24 = {1 << 24})", flush=True)
+    check(zero >= want and prod > 1 << 24,
+          f"{label}: {zero} pairs with a side above 10000 sequences "
+          f"(want {want}), largest product {prod}")
 
 
 def phase_time(torch):
@@ -490,12 +575,15 @@ def phase_long_parity(torch, mp_pool, workers):
     crossing = [(6, False, 0, 6, 2600, 4000), (6, True, 0, 4, 2600, 4000),
                 (22, False, 0, 4, 2600, 3600)]
     cross_marker = 8192
+    groups = [g + (False,) for g in groups + crossing]
+    n_plain = len(groups) - len(crossing)
     launches0 = talco_cuda.talco_align.launches
     jobs, kern, padlens = [], [], []
-    plain_left = LONG_PLAIN_PAIRS
+    plain_left = {False: LONG_PLAIN_PAIRS, True: SCALED_LONG_PLAIN}
     t0 = time.time()
-    for g, (p, leaf, task, n, lo, hi) in enumerate(groups + crossing):
-        cross = g >= len(groups)
+    for g, (p, leaf, task, n, lo, hi, scaled) in enumerate(
+            groups + SCALED_LONG):
+        cross = n_plain <= g < len(groups)
         marker = cross_marker if cross else 1024
         param = Params.make("n" if p == 6 else "p")
         prepared, metas, flen, xdrop = [], [], [], []
@@ -503,8 +591,10 @@ def phase_long_parity(torch, mp_pool, workers):
             kind = 0 if cross else t % 10
             # unrelated pairs with a tight X-drop collapse the band (error
             # 1); a narrow ladder width overflows it (error 2)
-            prep, meta = ti.long_pair(rng, p, leaf, lo, hi,
-                                    related=kind != 3)
+            prep, meta = ti.long_pair(
+                rng, p, leaf, lo, hi, related=kind != 3,
+                counts=SCALE_COUNTS[t % len(SCALE_COUNTS)] if scaled
+                else None)
             prepared.append(prep)
             metas.append(meta)
             xdrop.append(WIDE_XDROP if cross else
@@ -520,15 +610,15 @@ def phase_long_parity(torch, mp_pool, workers):
             padlens.append(padlen)
             for bi, i in enumerate(chunk):
                 plain = (not cross and max(prepared[i][4]) <= PLAIN_MAX_COLS
-                         and plain_left > 0)
-                plain_left -= plain
+                         and plain_left[scaled] > 0)
+                plain_left[scaled] -= plain
                 jobs.append({"p": p, "leaf": leaf, "marker": marker,
                              "task": task, "prep": prepared[i],
                              "meta": metas[i], "flen": flen[i],
                              "xdrop": xdrop[i], "native": True,
                              "plain": plain, "padlen": padlen})
                 kern.append((paths[bi, :tail[bi, 0]].copy(), tail[bi].copy(),
-                             (p, leaf, task, prepared[i][4])))
+                             (p, leaf, task, prepared[i][4], metas[i][2:])))
     launched = talco_cuda.talco_align.launches - launches0
     t_dev = time.time() - t0
     check(launched == len(padlens),
@@ -560,6 +650,11 @@ def phase_long_parity(torch, mp_pool, workers):
           f"(largest {max(padlens)})")
     check(nplain >= 8, f"long parity: only {nplain} pairs held to the "
           "plain version")
+    _scaled_summary("long parity", jobs, 8)
+    n_wide = sum(max(j["prep"][4]) > 13000 and max(j["meta"][2:4]) > 10000
+                 for j in jobs)
+    check(n_wide >= 4, f"long parity: {n_wide} pairs of 13-20k columns "
+          "with a side above 10000 sequences (want 4)")
     check(errs.get(1, 0) > 0 and errs.get(2, 0) > 0,
           "long parity: errors 1 and 2 were not both exercised")
     return max_err, n_cross
@@ -933,8 +1028,11 @@ def phase_probes(torch):
 
 
 def _md5(path):
+    h = hashlib.md5()
     with open(path, "rb") as f:
-        return hashlib.md5(f.read()).hexdigest()
+        while block := f.read(1 << 24):
+            h.update(block)
+    return h.hexdigest()
 
 
 def device_env(force, steal):
@@ -1152,68 +1250,58 @@ def _batcher_ms(torch):
 def phase_workflow(torch, td):
     """Iterative mode on sim10k, two iterations, with the default backend
     (auto: the card) and temp files kept: each step's wall, the launches
-    of each alignment, one count product on the card; then the whole
-    workflow again with --backend native on this host, whose iter0.nwk,
-    iter1.nwk and final MSA the default run must equal byte for byte (the
-    Gram product is on the host in both, the counts are exact)."""
+    of each alignment, one count product on the card; iter0.nwk, iter1.nwk
+    and the final MSA must equal, by md5, those of the whole workflow run
+    with --backend native (GOLDEN_WF10K_*; the Gram product is on the host
+    in both, the counts are exact)."""
     from twilight_tpu_torch.config import Params
     from twilight_tpu_torch.ops import talco_cuda
     from twilight_tpu_torch.tools.sp_score import sp_score
     from twilight_tpu_torch.trees import estimate
     from twilight_tpu_torch.workflow import iterative
     fa = simulate(td, *SIM10K)[3]
-    runs = {}
-    for tag, backend in (("default", "auto"), ("native", "native")):
-        wd = os.path.join(td, f"wf10k_{tag}")
-        out = os.path.join(td, f"wf10k_{tag}.aln")
-        _clean_env()
-        estimate.pair_counts_on.calls = 0
-        talco_cuda.talco_align.launches = 0
-        t0 = time.time()
-        steps = iterative.run_iterative(fa, out, iterations=2, temp_dir=wd,
-                                        backend=backend, keep_temp=True)
-        wall = time.time() - t0
-        runs[tag] = {"wd": wd, "out": out, "wall_s": wall, "steps": steps,
-                     "launches": talco_cuda.talco_align.launches,
-                     "counts_on_card": estimate.pair_counts_on.calls}
-        print(f"[workflow] sim10k, 2 iterations, {tag} backend: "
-              f"{wall:.3f} s; steps " + json.dumps(steps), flush=True)
-    dflt, nat = runs["default"], runs["native"]
-    aligns = [s for s in dflt["steps"] if s["step"].startswith("align")]
-    check(dflt["counts_on_card"] == 1,
-          f"workflow: {dflt['counts_on_card']} count products on the "
-          "card, want 1")
-    check(nat["counts_on_card"] == 0 and nat["launches"] == 0,
-          "workflow: the native run used the card")
+    wd = os.path.join(td, "wf10k_default")
+    out = os.path.join(td, "wf10k_default.aln")
+    _clean_env()
+    estimate.pair_counts_on.calls = 0
+    talco_cuda.talco_align.launches = 0
+    t0 = time.time()
+    steps = iterative.run_iterative(fa, out, iterations=2, temp_dir=wd,
+                                    backend="auto", keep_temp=True)
+    wall = time.time() - t0
+    launches = talco_cuda.talco_align.launches
+    print(f"[workflow] sim10k, 2 iterations, default backend: {wall:.3f} "
+          "s; steps " + json.dumps(steps), flush=True)
+    aligns = [s for s in steps if s["step"].startswith("align")]
+    check(estimate.pair_counts_on.calls == 1,
+          f"workflow: {estimate.pair_counts_on.calls} count products on "
+          "the card, want 1")
     check(all(s["launches"] > 0 for s in aligns)
-          and sum(s["launches"] for s in aligns) == dflt["launches"],
+          and sum(s["launches"] for s in aligns) == launches,
           f"workflow: launches by iteration {[s['launches'] for s in aligns]}"
-          f", {dflt['launches']} counted")
-    for name in ("iter0.nwk", "iter1.nwk"):
-        a = _read(os.path.join(dflt["wd"], name))
-        b = _read(os.path.join(nat["wd"], name))
-        check(a == b, f"workflow: {name} of the default run differs from "
-              "the native run's")
-    md5, md5_native = _md5(dflt["out"]), _md5(nat["out"])
-    check(md5 == md5_native, f"workflow: final MSA md5 {md5} != native "
-          f"{md5_native}")
+          f", {launches} counted")
+    got = {name: hashlib.md5(_read(os.path.join(wd, name)).encode())
+           .hexdigest() for name in ("iter0.nwk", "iter1.nwk")}
+    got["final"] = _md5(out)
+    for name, want in (("iter0.nwk", GOLDEN_WF10K_TREE0),
+                       ("iter1.nwk", GOLDEN_WF10K_TREE1),
+                       ("final", GOLDEN_WF10K)):
+        check(got[name] == want, f"workflow: {name} md5 {got[name]} != "
+              f"{want}, the whole native workflow's")
     param = Params.make("n")
-    sp = sp_score(list(_read_fasta(dflt["out"]).values()), "n", param)
+    sp = sp_score(list(_read_fasta(out).values()), "n", param)
     batcher_ms = _batcher_ms(torch)
-    rec = {"wall_s": dflt["wall_s"], "steps": dflt["steps"],
-           "launches": dflt["launches"], "md5": md5,
-           "md5_native": md5_native, "sp_score": sp,
-           "native_wall_s": nat["wall_s"], "native_steps": nat["steps"],
-           "tree0_md5": hashlib.md5(_read(os.path.join(
-               dflt["wd"], "iter0.nwk")).encode()).hexdigest(),
+    rec = {"wall_s": wall, "steps": steps, "launches": launches,
+           "md5": got["final"], "tree0_md5": got["iter0.nwk"],
+           "tree1_md5": got["iter1.nwk"], "sp_score": sp,
            "batcher_ms": batcher_ms}
     print("[workflow] " + json.dumps(
-        {k: v for k, v in rec.items() if "steps" not in k}), flush=True)
+        {k: v for k, v in rec.items() if k != "steps"}), flush=True)
     print(f"[workflow] iter0.nwk, iter1.nwk and the final md5 equal the "
           f"whole native workflow's; SP {sp:.1f}; a fresh batcher "
           f"{batcher_ms:.2f} ms per iteration", flush=True)
-    return {"rec": rec, "fa": fa, "out": dflt["out"],
-            "iter0": _read_fasta(os.path.join(dflt["wd"], "iter0.aln"))}
+    return {"rec": rec, "fa": fa, "out": out,
+            "iter0": _read_fasta(os.path.join(wd, "iter0.aln"))}
 
 
 def _product(torch, name, host, card, resident, h2d, ops, in_bytes):
@@ -1732,6 +1820,151 @@ def phase_crosslevel(torch, td, per_level):
 # the last modules: SASS census, graft entry, sharding, dry run
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# scale: divide-and-conquer at the size the JAX package was validated at
+# ---------------------------------------------------------------------------
+
+def _rss_gib():
+    """(current RSS, max RSS so far) of this process, GiB."""
+    import resource
+    with open("/proc/self/status") as f:
+        now = int(re.search(r"^VmRSS:\s+(\d+) kB", f.read(), re.M).group(1))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return now / (1 << 20), peak / (1 << 20)
+
+
+def phase_scale(torch, td, sim=SIM40K, golden=GOLDEN_SIM40K,
+                which=("forced", "default")):
+    """Default mode with divide-and-conquer at scale (`sim`: sim40k, or
+    sim100k for scale100k), --rooted -m SCALE_M, through the entry point in
+    this process, each run of `which` held to md5 `golden`. Run A
+    ("forced"), the card takes every pair (--backend cuda, the device
+    forced, no stealing): held to launches above 0 and
+    to every non-empty pair resolved on the card or deferred at task 0
+    (e2e_run); device_kernel.pack_batch is wrapped to count the freq pairs
+    packed with a side above 10000 sequences (each must carry gap_char 0),
+    at least one, with the largest ref_num * qry_num, the widest padlen
+    and the widest side. The DP sees each profile without its gappy
+    columns (above 95% gaps, -r 0.95), so at sim40k every side stays
+    within 2048 columns. Run C ("all_columns", the scale_r1 phase): the
+    same with -r 1 (no column removed), so that the pairs near the
+    subtrees' tops and the meta-tree merge, sides above 10000 sequences
+    among them, go by long launches (up to ~10k columns at sim40k): held
+    to long launches above 0 and to pairs above 10000 sequences packed
+    past padlen 2048. Run B ("default"), the user's run (no --backend
+    flag, no environment knobs): its launches and stolen pairs. Each run
+    prints its wall,
+    launches by route, pairs on the card, stolen, task-0 errors,
+    host_wide, the peak device memory, this process's RSS after the run
+    and its max RSS so far, the subtrees' sizes and widths and the
+    output's bytes; each output is deleted once its md5 is taken."""
+    from twilight_tpu_torch.ops import device_kernel as dk
+    name = sim[0]
+    args = simulate(td, *sim) + ["--rooted", "-m", str(SCALE_M)]
+    runs = {}
+    real = dk.pack_batch
+
+    def run(label, extra, want, packed=None, **kw):
+        def counting(chunk, prepared, metas, task, padlen, *a, **k):
+            st = real(chunk, prepared, metas, task, padlen, *a, **k)
+            gap_char = st.floats.numpy()[2]
+            for bi, i in enumerate(chunk):
+                rnum, qnum = metas[i][2], metas[i][3]
+                packed["pairs"] += 1
+                packed["max_product"] = max(packed["max_product"],
+                                            rnum * qnum)
+                packed["max_side"] = max(packed["max_side"],
+                                         *prepared[i][4])
+                if max(rnum, qnum) > 10000:
+                    packed["above_10000"] += 1
+                    packed["above_10000_max_padlen"] = max(
+                        packed["above_10000_max_padlen"], padlen)
+                    check(gap_char[bi] == 0.0,
+                          f"{name}: a pair of {rnum} and {qnum} sequences "
+                          f"packed with gap_char {gap_char[bi]}")
+            packed["max_padlen"] = max(packed["max_padlen"], padlen)
+            return st
+
+        torch.cuda.reset_peak_memory_stats()
+        if packed is not None:
+            dk.pack_batch = counting
+        try:
+            with tee_stderr() as err:
+                rec = e2e_run(torch, runs, td, label, extra + args + [
+                    "-d", os.path.join(td, label + "_tmp")], want, **kw)
+        finally:
+            dk.pack_batch = real
+        out = os.path.join(td, label + ".aln")
+        rec["output_bytes"] = os.path.getsize(out)
+        os.remove(out)
+        rec["peak_device_gib"] = torch.cuda.max_memory_allocated() / (1 << 30)
+        rec["rss_gib"], rec["max_rss_gib"] = _rss_gib()
+        # pinned host blocks the caching host allocator holds (staging and
+        # result buffers, active + cached)
+        rec["pinned_gib"] = torch.cuda.host_memory_stats()[
+            "allocated_bytes.current"] / (1 << 30)
+        text = err.text()
+        rec["subtrees"] = [int(n) for n in re.findall(
+            r"^Number : (\d+)$", text, re.M)]
+        rec["widths"] = [int(n) for n in re.findall(
+            r"^Subalignment Length: (\d+)$", text, re.M)]
+        whole = re.search(r"^Alignment on \d+ subalignments \(length: "
+                          r"(\d+)\)", text, re.M)
+        rec["width"] = int(whole.group(1)) if whole else None
+        print(f"[{name}] {label}: wall {rec['wall_s']:.3f} s; launches "
+              f"{rec['launches']} (leaf {rec['leaf_launches']}, long "
+              f"{rec['long_launches']}, wide {rec['wide_launches']}); pairs "
+              f"{rec['pairs']}, on the card {rec['pairs_on_device']}, stolen "
+              f"{rec['host_stolen']}, task-0 errors {rec['task0_errors']}, "
+              f"host_wide {rec['host_wide']}; peak device memory "
+              f"{rec['peak_device_gib']:.3f} GiB; RSS {rec['rss_gib']:.3f} "
+              f"GiB, max {rec['max_rss_gib']:.3f} GiB, pinned host "
+              f"{rec['pinned_gib']:.3f} GiB; subtrees "
+              f"{rec['subtrees']} of widths {rec['widths']}, whole "
+              f"{rec['width']}; output {rec['output_bytes']} bytes; md5 "
+              f"{rec['md5']}", flush=True)
+        check(len(rec["subtrees"]) > 1 and sum(rec["subtrees"])
+              == int(sim[sim.index("-n") + 1]),
+              f"{name}/{label}: subtrees {rec['subtrees']}")
+        if packed is not None:
+            rec["packed"] = packed
+            print(f"[{name}] {label}: {packed['pairs']} freq pairs packed, "
+                  f"{packed['above_10000']} with a side above 10000 "
+                  f"sequences (gap_char 0; widest padlen among them "
+                  f"{packed['above_10000_max_padlen']}), largest ref_num * "
+                  f"qry_num {packed['max_product']}, widest padlen "
+                  f"{packed['max_padlen']}, widest side "
+                  f"{packed['max_side']} columns", flush=True)
+            check(packed["above_10000"] > 0, f"{name}/{label}: no pair with "
+                  "a side above 10000 sequences was packed")
+        return rec
+
+    def counts():
+        return dict.fromkeys(("pairs", "above_10000", "max_product",
+                              "max_padlen", "max_side",
+                              "above_10000_max_padlen"), 0)
+
+    res = {}
+    if "forced" in which:
+        res["forced"] = run(f"{name}_m{SCALE_M}_cuda", ["--backend", "cuda"],
+                            golden, counts(), task0_errors=None)
+    if "all_columns" in which:
+        res["all_columns"] = c = run(
+            f"{name}_m{SCALE_M}_r1_cuda", ["--backend", "cuda", "-r", "1"],
+            golden, counts(), task0_errors=None)
+        check(c["long_launches"] > 0
+              and c["packed"]["above_10000_max_padlen"] > dk.SHORT_PADLEN,
+              f"{name}: -r 1 made {c['long_launches']} long launches, and "
+              "packed its pairs above 10000 sequences at padlen "
+              f"{c['packed']['above_10000_max_padlen']}")
+    if "default" in which:
+        res["default"] = run(f"{name}_m{SCALE_M}_default", [], golden,
+                             force=False, steal=True)
+        check(res["default"]["launches"] > 0,
+              f"{name}: the default run made no launch")
+    return res
+
+
 def phase_census(attributes):
     """The instruction mix of every kernel instance (tools/sass_census.py
     on the built libraries). Held: all 22 instances are there, none
@@ -2059,7 +2292,9 @@ PHASES = ("parity", "long_parity", "wide", "time", "long_time", "gate",
           "probes", "e2e", "long_e2e", "workflow", "products", "placement",
           "multihost", "multidevice", "fuzz", "bench", "quality",
           "frontdoor", "census", "entry", "dryrun", "resume", "merge",
-          "crosslevel")
+          "crosslevel", "scale", "scale_r1", "scale100k")
+# phases that run only when --only names them (each a few minutes more)
+ON_REQUEST = {"scale_r1", "scale100k"}
 
 
 def main(argv=None):
@@ -2068,7 +2303,9 @@ def main(argv=None):
                                  "GPU (module doc)")
     ap.add_argument("--only", help="comma-separated phases to run (of "
                     f"{', '.join(PHASES)}; products needs workflow, merge "
-                    "needs resume); the kernels' JSON line needs them all")
+                    "needs resume; scale_r1 and scale100k run only when "
+                    "named here); "
+                    "the kernels' JSON line needs all the others")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
     if only is not None and (not only <= set(PHASES)
@@ -2081,7 +2318,7 @@ def main(argv=None):
         return 2
 
     def want(phase):
-        return only is None or phase in only
+        return phase not in ON_REQUEST if only is None else phase in only
 
     import torch
     if not torch.cuda.is_available():
@@ -2146,14 +2383,15 @@ def main(argv=None):
             with ProcessPoolExecutor(
                     max_workers=workers,
                     mp_context=multiprocessing.get_context("spawn")) as pool:
-                dryrun = run("dryrun", phase_dryrun, torch, pool)
                 if want("wide"):
                     wide_err, wide, wide_cross = run(
                         "wide", phase_wide_parity, torch, pool, workers)
-                # the quality harness's processes run beside the host
-                # references of the phases below, which time nothing
+                # the quality harness's processes run beside the dry run
+                # and the host references of the phases below, which time
+                # nothing
                 if want("quality"):
                     started = quality_start(td)
+                dryrun = run("dryrun", phase_dryrun, torch, pool)
                 parity_err = run("parity", phase_parity, torch, pool,
                                  workers)
                 if want("long_parity"):
@@ -2186,6 +2424,10 @@ def main(argv=None):
         resumed = run("resume", phase_resume, torch, td)
         merged = run("merge", phase_merge, torch, td, resumed)
         xl = run("crosslevel", phase_crosslevel, torch, td, runs)
+        scale = run("scale", phase_scale, torch, td)
+        run("scale_r1", phase_scale, torch, td, SIM40K, GOLDEN_SIM40K_R1,
+            ("all_columns",))
+        run("scale100k", phase_scale, torch, td, SIM100K, GOLDEN_SIM100K)
         frontdoor = run("frontdoor", phase_frontdoor, td)
     ok = json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": count}})
@@ -2241,12 +2483,10 @@ def main(argv=None):
           flush=True)
     rec = wf["rec"]
     walls = {s["step"]: round(s["s"], 3) for s in rec["steps"]}
-    native_walls = {s["step"]: round(s["s"], 3) for s in rec["native_steps"]}
     print(f"[summary] workflow sim10k -n 2 (default backend): "
           f"{rec['wall_s']:.3f} s, steps {json.dumps(walls)}, launches by "
           f"iteration {[s['launches'] for s in rec['steps'] if 'launches' in s]}"
-          f"; the whole workflow with --backend native "
-          f"{rec['native_wall_s']:.3f} s, steps {json.dumps(native_walls)}; "
+          f"; iter0.nwk, iter1.nwk and the final md5 the native workflow's; "
           f"SP {rec['sp_score']:.1f}; card {smi_line}", flush=True)
     print(f"[summary] placement 500 onto 2000, -n 2: default "
           f"{place['cuda']['wall_s']:.3f} s ({place['cuda']['launches']} "
@@ -2285,6 +2525,18 @@ def main(argv=None):
                            ("sim2k_xl_defer_cuda", "sim2k_defer_cuda")))
           + f"; forced {xl['sim2k_xl_cuda']['rounds']} rounds; card "
           f"{smi_line}", flush=True)
+    print(f"[summary] scale {SIM40K[0]} --rooted -m {SCALE_M} (wall s; "
+          "launches: leaf, long, wide; stolen; pairs packed with a side "
+          "above 10000 at padlen up to; peak device GiB; RSS GiB): " + "; ".join(
+              f"{k} {r['wall_s']:.3f}; {r['launches']}: {r['leaf_launches']}, "
+              f"{r['long_launches']}, {r['wide_launches']}; "
+              f"{r['host_stolen']}; "
+              + (f"{r['packed']['above_10000']} at "
+                 f"{r['packed']['above_10000_max_padlen']}; "
+                 if "packed" in r else "")
+              + f"{r['peak_device_gib']:.3f}; {r['rss_gib']:.3f}"
+              for k, r in scale.items())
+          + f"; card {smi_line}", flush=True)
     print(f"[summary] fuzz, seed {FUZZ_SEED}: {fuzz['pairs']} pairs "
           f"{json.dumps(fuzz['by_route'])}, error codes "
           f"{json.dumps(fuzz['errors'])}, none differs from the oracle; card "
@@ -2316,25 +2568,30 @@ def main(argv=None):
           f"{dryrun['where']}: {dryrun['summary']}; card {smi_line}",
           flush=True)
 
-    def talco(name, res, launches, err, plain_ms, replaces):
+    def talco(name, res, launches, err, plain_ms, replaces, key):
+        # launches: the route's launches on its own path's forced run;
+        # launches_sim40k: on the scale phase's forced run, counted from 0
+        # just before it
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": res["ms_per_pair_resident"],
                 "plain_ms": plain_ms, "bound_ms": res["bound_ms_per_pair"],
                 "bound_by": res["bound_by"], "library_ms": None,
-                "unit": "per pair", "us_per_diagonal": res["us_per_diagonal"]}
+                "unit": "per pair", "us_per_diagonal": res["us_per_diagonal"],
+                "launches_sim40k": scale["forced"][key]}
 
     nt = timing["nt freq"]
     kernels = [
         talco("talco_xdrop (K1/K2: freq and leaf, padlen 2048)", nt,
               runs["sim2k_cuda"]["launches"], parity_err,
-              nt["plain_ms_per_pair"], REPLACES),
+              nt["plain_ms_per_pair"], REPLACES, "launches"),
         talco("talco_xdrop (K4: long route, padlen above 2048)",
               long_time["nt freq"], long_runs["s20_cuda"]["long_launches"],
-              long_err, long_time["plain"]["ms_per_pair"], REPLACES_LONG),
+              long_err, long_time["plain"]["ms_per_pair"], REPLACES_LONG,
+              "long_launches"),
         talco("talco_xdrop (K5: wide route, ladder width above 4096)", wide,
               long_runs["w20_cuda"]["wide_launches"], wide_err,
-              wide["plain_ms_per_pair"], REPLACES_WIDE)]
+              wide["plain_ms_per_pair"], REPLACES_WIDE, "wide_launches")]
     from twilight_tpu_torch.tools import talco_inputs as ti
     for fn, kid, replaces, main_variant, ops, layout in PROBES:
         vs = {r["name"]: r for r in probes.values()

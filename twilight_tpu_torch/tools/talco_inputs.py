@@ -69,11 +69,34 @@ def _profile(rng, base, k, p, gap_rate):
     return freq
 
 
+def _scaled_profile(rng, base, num, p, gap_rate):
+    """Profile of `num` sequences derived column-wise from base, drawn as
+    counts (no loop over the sequences): each column holds Binomial(num,
+    gap_rate) gaps and Binomial(rest, 0.08) substitutions spread over the
+    letters, the rest on the base letter. Then, as calculate_profile
+    gives a stored profile back, divided by the side's weight and
+    multiplied by num in f32: [len, P] f32 of row sums near num, not all
+    integers."""
+    n = len(base)
+    gaps = rng.binomial(num, gap_rate, n)
+    subs = rng.binomial(num - gaps, 0.08)
+    counts = rng.multinomial(subs, np.full(p - 2, 1.0 / (p - 2))).astype(
+        np.int64)
+    counts[np.arange(n), np.asarray(base)] += num - gaps - subs
+    freq = np.zeros((n, p), np.float32)
+    freq[:, :p - 2] = counts
+    freq[:, p - 1] = gaps
+    weight = np.float32(num * rng.uniform(0.5, 1.5))
+    stored = (freq / np.float32(num)) * weight
+    return (stored / weight) * np.float32(num)
+
+
 def make_pair(rng, p, leaf, length, related=True, gap_rate=0.05,
-              cap=2048):
+              cap=2048, counts=None):
     """(prepared tuple, meta) for one pair of sides at most `cap` long:
     freq route profiles with position-specific gap scores, or leaf route
-    letters."""
+    letters. `counts` (ref, qry), freq only: each side stands for that
+    many sequences (_scaled_profile); else 1-4 sequences a side."""
     nlet = p - 2                       # letters without the ambiguity code
     anc = rng.integers(0, nlet, length)
     if related:
@@ -93,9 +116,14 @@ def make_pair(rng, p, leaf, length, related=True, gap_rate=0.05,
                 table[np.asarray(qseq, np.int64)])
         return (None, None, cons, ([], []), (rl, ql), None, None), \
             (rl, ql, 1, 1)
-    kr, kq = int(rng.integers(1, 5)), int(rng.integers(1, 5))
-    fr = _profile(rng, rseq, kr, p, gap_rate)
-    fq = _profile(rng, qseq, kq, p, gap_rate)
+    if counts is None:
+        kr, kq = int(rng.integers(1, 5)), int(rng.integers(1, 5))
+        fr = _profile(rng, rseq, kr, p, gap_rate)
+        fq = _profile(rng, qseq, kq, p, gap_rate)
+    else:
+        kr, kq = counts
+        fr = _scaled_profile(rng, rseq, kr, p, gap_rate)
+        fq = _scaled_profile(rng, qseq, kq, p, gap_rate)
 
     def psgp(freq, k, base):
         gap = freq[:, p - 1] / np.float32(k)
@@ -107,13 +135,13 @@ def make_pair(rng, p, leaf, length, related=True, gap_rate=0.05,
             (rl, ql, kr, kq))
 
 
-def long_pair(rng, p, leaf, lo, hi, related=True):
+def long_pair(rng, p, leaf, lo, hi, related=True, counts=None):
     """A pair (make_pair) of about lo-hi columns, log-uniform, whose
     longer side is above the 2048 bucket."""
     while True:
         length = int(np.exp(rng.uniform(np.log(lo), np.log(hi))))
         prep, meta = make_pair(rng, p, leaf, length, related=related,
-                               cap=hi)
+                               cap=hi, counts=counts)
         if max(prep[4]) > 2048:
             return prep, meta
 
@@ -209,7 +237,9 @@ def host_check(job):
         gap_char = GE
     else:
         fr, fq, _, _, _, go, ge = prep
-        gap_char = 0.0 if task in (1, 2) else GE
+        # the packer's rule (device_kernel.pack_batch)
+        gap_char = (0.0 if task in (1, 2) or meta[2] > 10000
+                    or meta[3] > 10000 else GE)
     tp = talco_np.TalcoRunParams(
         param.scoring_matrix, GO, GE, gap_char, job["xdrop"],
         flen=job["flen"], marker=marker)
