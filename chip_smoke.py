@@ -37,9 +37,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    held to the native host kernel at both widths; the wide launch is
    timed, and the plain version timed on one wide pair;
 6. kernel time at the main path's shapes (`time`, batch 128, padlen
-   2048): nt freq, nt leaf and protein freq, ms/pair with H2D + kernel +
-   D2H and resident and us per diagonal, beside the plain version's time
-   on CUDA tensors for 1 of the pairs;
+   2048): nt freq, nt leaf, protein freq and protein leaf, ms/pair with
+   H2D + kernel + D2H and resident and us per diagonal, beside the plain
+   version's time on CUDA tensors for 1 of the pairs;
 7. long time (`long_time`): nt freq and nt leaf at 29-30 kb, protein freq
    at 2.9-3 kb, each at the launch size the batcher picks, with DP
    Gcells/s, and the plain version's time for one ~3000-column pair;
@@ -186,26 +186,46 @@ Phases (each prints its own lines; any failure exits non-zero):
    --backend flag, no knobs; the same md5); each run's wall, launches by
    route, stolen pairs, peak device memory, RSS, subtrees, widths and
    output bytes printed, the output deleted once its md5 is taken;
-28. scale_r1 (`scale_r1`, only when --only names it): sim40k forced with
+28. protein (`protein`): the protein path at a protein user's sizes,
+   every run held to a recorded md5 (no native process): prot20k (20000
+   x ~400 residues, true tree) --type p --rooted -m 10000 (3 subtrees,
+   a meta-tree merge with a side above 10000 sequences), forced with no
+   stealing as the scale phase holds sim40k, and also held to launches
+   of both protein instances (talco_xdrop_kernel<22, true> and <22,
+   false>, counted by the wrapper), then with no --backend flag; the
+   workflow's iterative mode on prot5k (5000 x ~400, --type p, two
+   iterations, default backend: iter0.nwk, iter1.nwk and the final md5
+   the native workflow's, one protein count product on the card, its
+   letters, one-hot bytes and peak device memory printed); prot_16 forced
+   with -b 45 and -b 80 (the reference goldens) and with two -x files:
+   BLOSUM62 as -b 62 scores it, and a changed matrix in another letter
+   order; then one [protein] summary line;
+29. protein_trace (`protein_trace`, only when --only names it): prot20k
+   forced under a torch.profiler trace (the CLI's --profile-trace; the
+   same md5, every launch seen in the trace): the TALCO kernels' device
+   time, the copies', and the card's busy time and idle share;
+30. scale_r1 (`scale_r1`, only when --only names it): sim40k forced with
    -r 1 (no column removed: long and wide launches up to padlen 9728,
    pairs of a side above 10000 sequences among them; md5
    GOLDEN_SIM40K_R1, both packages' native md5);
-29. scale100k (`scale100k`, only when --only names it): the forced and
+31. scale100k (`scale100k`, only when --only names it): the forced and
    the default run on sim100k (100000 x 1 kb, 7 subtrees, 28567 columns,
    a 2.86 GB output), md5 GOLDEN_SIM100K.
 
 `--only a,b,...` runs some phases (build always runs; products needs
-workflow, merge needs resume; scale_r1 and scale100k run only when
-named) and prints no kernels line. Each phase's
-wall is printed ([timing]).
+workflow, merge needs resume; protein_trace, scale_r1 and scale100k
+run only when named) and prints no kernels line. Each phase's wall is
+printed ([timing]).
 
 Only the port is imported (twilight_tpu_torch); its simulator makes the
 sets, and the inputs, launches, host references and bounds of the kernel
 phases are its tools' (tools/talco_inputs.py). The products' figures are a
 JSON line of their own. The last two lines are a JSON object with the
-kernels' figures (K1/K2, K4, K5, K6-K10, K8 and K10 in both layouts:
-time, plain time, bound, launches) and the result line {"ok": true, "device": {...}}. Without a CUDA device, or without the
-rest of the repository beside it, it exits non-zero.
+kernels' figures (K1/K2, K4, K5, the protein instances of K1 and K2,
+K6-K10, K8 and K10 in both layouts: time, plain time, bound, launches)
+and the result line {"ok": true, "device": {...}}. Without a CUDA
+device, or without the rest of the repository beside it, it exits
+non-zero.
 """
 import hashlib
 import json
@@ -244,6 +264,28 @@ GOLDEN_WF10K_TREE1 = "4a9af4ee9fd0547466ceafa485264fe4"
 GOLDEN_WF10K = "622070070421035d02b9598b3e642396"
 # the same with -n 100000 (7 subtrees, 100000 x 28567 columns)
 GOLDEN_SIM100K = "573154ec7f3c37edc752c76e90863493"
+# the protein phase. simulate --type p -n 20000 -l 400 --seed 0, then
+# --type p --rooted -m 10000 -d <fresh dir> --backend native: python -m
+# twilight_tpu_torch and python -m twilight_tpu give it alike (3 subtrees,
+# 20000 x 7379 columns)
+GOLDEN_PROT20K = "0e5ebc1b6795b7ba36d4c0a5eb5029f5"
+# python -m twilight_tpu_torch.workflow's iterative mode on prot5k
+# (simulate --type p -n 5000 -l 400 --seed 0), --type p, two iterations,
+# --backend native on the H100's host: iter0.nwk, iter1.nwk (as
+# GOLDEN_WF10K_*) and the final MSA, twilight_tpu.workflow's alike. A host
+# whose BLAS rounds the k-mer Gram product otherwise writes another
+# iter0.nwk (c9bcc996... on a CPU host), with the same iter1.nwk and MSA
+GOLDEN_WFP5K_TREE0 = "4533c8b0b0eae8d012f76f1eb44ac03b"
+GOLDEN_WFP5K_TREE1 = "b6850003d26b287ba2d3bffd72c17797"
+GOLDEN_WFP5K = "b35eb89e07ac0defe10c78ffd84b66e9"
+# prot_16 with -b 45 and -b 80: the reference TWILIGHT's outputs
+# (tests/golden/prot_16.b45.aln, prot_16.b80.aln)
+GOLDEN_PROT16_B45 = "9af2a23685daa29d8e9fdeee7d77c534"
+GOLDEN_PROT16_B80 = "fa2b46e93a6a20121609bbe7179e3163"
+# prot_16 with -x: BLOSUM62 (x 5, as -b 62 scores it) written out over its
+# 20 letters gives GOLDEN_PROT16 itself; the changed matrix
+# (changed_blosum62) gives this, with --backend native of both packages
+GOLDEN_PROT16_XCHANGED = "ddcade90d4fbb8b244b5ef3fb66f4241"
 KERNEL_SOURCE = "twilight_tpu_torch/ops/csrc/talco_xdrop.cu"
 REPLACES = "twilight_tpu/ops/talco_pallas_g8.py:1672"
 REPLACES_LONG = "twilight_tpu/ops/talco_pallas_g8.py:1556"   # hbm_in
@@ -279,6 +321,12 @@ SIM10K = ("sim10k", "-n", "10000", "-l", "1000", "--seed", "0")
 SIM40K = ("sim40k", "-n", "40000", "-l", "1000", "--seed", "0")
 SIM100K = ("sim100k", "-n", "100000", "-l", "1000", "--seed", "0")
 SCALE_M = 20000
+PROT20K = ("prot20k", "--type", "p", "-n", "20000", "-l", "400", "--seed",
+           "0")
+PROT_M = 10000                # prot20k's -m: 3 subtrees, a side above 10000
+PROT5K = ("prot5k", "--type", "p", "-n", "5000", "-l", "400", "--seed", "0")
+AA20 = "ACDEFGHIKLMNPQRSTVWY"   # a -x file's letters, in the port's order
+XCHANGED_ORDER = "WYFMLIVCAGPSTNDEQKRH"   # the changed matrix's
 MULTIHOST_M = 2000            # the multihost phase's -m (sim10k: 2000 max)
 PROC_TIMEOUT_S = 600          # each process of the multihost phase
 PLACE_ROWS = 5000             # placement counts: 5000 x 5000 rows
@@ -491,7 +539,8 @@ def phase_time(torch):
     rng = np.random.default_rng(7)
     shapes = [("nt freq", 6, False, 900, 1200), ("nt leaf", 6, True, 900,
                                                  1200),
-              ("protein freq", 22, False, 250, 450)]
+              ("protein freq", 22, False, 250, 450),
+              ("protein leaf", 22, True, 250, 450)]
     out = {}
     for name, p, leaf, lo, hi in shapes:
         param = Params.make("n" if p == 6 else "p")
@@ -1056,12 +1105,14 @@ def e2e_run(torch, runs, td, label, argv, golden, device=True, force=True,
     on the device, bar those stolen and exactly `task0_errors` pairs that
     the reference defers at task 0 (the device's error is their answer;
     None: as many as the batcher counted, printed with the run).
-    The launch count is zeroed just before the run and read just after."""
+    The launch counts (in all and by kernel instance) are zeroed just
+    before the run and read just after."""
     from twilight_tpu_torch import cli
     from twilight_tpu_torch.ops import talco_cuda
     out = os.path.join(td, label + ".aln")
     device_env(force, steal)
     talco_cuda.talco_align.launches = 0
+    talco_cuda.talco_align.by_instance.clear()
     t0 = time.time()
     rc, kernel = cli.run(argv + ["-o", out])
     torch.cuda.synchronize()
@@ -1069,7 +1120,8 @@ def e2e_run(torch, runs, td, label, argv, golden, device=True, force=True,
     launches = talco_cuda.talco_align.launches
     check(rc == 0, f"e2e/{label}: exit code {rc}")
     md5 = _md5(out)
-    rec = {"wall_s": wall, "md5": md5, "launches": launches}
+    rec = {"wall_s": wall, "md5": md5, "launches": launches,
+           "by_instance": dict(talco_cuda.talco_align.by_instance)}
     if device:
         rec.update(kernel.stats)
     runs[label] = rec
@@ -1247,54 +1299,69 @@ def _batcher_ms(torch):
     return float(sorted(walls[1:])[2]) * 1e3
 
 
-def phase_workflow(torch, td):
-    """Iterative mode on sim10k, two iterations, with the default backend
-    (auto: the card) and temp files kept: each step's wall, the launches
-    of each alignment, one count product on the card; iter0.nwk, iter1.nwk
-    and the final MSA must equal, by md5, those of the whole workflow run
-    with --backend native (GOLDEN_WF10K_*; the Gram product is on the host
-    in both, the counts are exact)."""
-    from twilight_tpu_torch.config import Params
+def run_workflow(torch, td, sim, goldens, type_=None):
+    """Iterative mode on the simulated set `sim`, two iterations, with the
+    default backend (auto: the card) and temp files kept: each step's
+    wall, the launches of each alignment, one count product on the card
+    (pair_counts_on.calls, zeroed just before), the peak device memory;
+    iter0.nwk, iter1.nwk and the final MSA must equal, by md5, `goldens`
+    (those of the whole workflow run with --backend native; the Gram
+    product is on the host in both, the counts are exact). Returns (the
+    record, the temp dir, the output, the input FASTA)."""
     from twilight_tpu_torch.ops import talco_cuda
-    from twilight_tpu_torch.tools.sp_score import sp_score
     from twilight_tpu_torch.trees import estimate
     from twilight_tpu_torch.workflow import iterative
-    fa = simulate(td, *SIM10K)[3]
-    wd = os.path.join(td, "wf10k_default")
-    out = os.path.join(td, "wf10k_default.aln")
+    name = sim[0]
+    fa = simulate(td, *sim)[3]
+    wd = os.path.join(td, f"wf_{name}_default")
+    out = os.path.join(td, f"wf_{name}_default.aln")
     _clean_env()
     estimate.pair_counts_on.calls = 0
     talco_cuda.talco_align.launches = 0
+    talco_cuda.talco_align.by_instance.clear()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     steps = iterative.run_iterative(fa, out, iterations=2, temp_dir=wd,
-                                    backend="auto", keep_temp=True)
+                                    type_=type_, backend="auto",
+                                    keep_temp=True)
     wall = time.time() - t0
     launches = talco_cuda.talco_align.launches
-    print(f"[workflow] sim10k, 2 iterations, default backend: {wall:.3f} "
+    print(f"[workflow] {name}, 2 iterations, default backend: {wall:.3f} "
           "s; steps " + json.dumps(steps), flush=True)
     aligns = [s for s in steps if s["step"].startswith("align")]
     check(estimate.pair_counts_on.calls == 1,
-          f"workflow: {estimate.pair_counts_on.calls} count products on "
-          "the card, want 1")
+          f"workflow/{name}: {estimate.pair_counts_on.calls} count products "
+          "on the card, want 1")
     check(all(s["launches"] > 0 for s in aligns)
           and sum(s["launches"] for s in aligns) == launches,
-          f"workflow: launches by iteration {[s['launches'] for s in aligns]}"
-          f", {launches} counted")
-    got = {name: hashlib.md5(_read(os.path.join(wd, name)).encode())
-           .hexdigest() for name in ("iter0.nwk", "iter1.nwk")}
+          f"workflow/{name}: launches by iteration "
+          f"{[s['launches'] for s in aligns]}, {launches} counted")
+    got = {n: hashlib.md5(_read(os.path.join(wd, n)).encode()).hexdigest()
+           for n in ("iter0.nwk", "iter1.nwk")}
     got["final"] = _md5(out)
-    for name, want in (("iter0.nwk", GOLDEN_WF10K_TREE0),
-                       ("iter1.nwk", GOLDEN_WF10K_TREE1),
-                       ("final", GOLDEN_WF10K)):
-        check(got[name] == want, f"workflow: {name} md5 {got[name]} != "
+    for n, want in zip(("iter0.nwk", "iter1.nwk", "final"), goldens):
+        check(got[n] == want, f"workflow/{name}: {n} md5 {got[n]} != "
               f"{want}, the whole native workflow's")
+    rec = {"wall_s": wall, "steps": steps, "launches": launches,
+           "by_instance": dict(talco_cuda.talco_align.by_instance),
+           "md5": got["final"], "tree0_md5": got["iter0.nwk"],
+           "tree1_md5": got["iter1.nwk"],
+           "peak_device_gib": torch.cuda.max_memory_allocated() / (1 << 30)}
+    return rec, wd, out, fa
+
+
+def phase_workflow(torch, td):
+    """Iterative mode on sim10k (run_workflow, GOLDEN_WF10K_*), its SP
+    score, and what a fresh DP batcher costs an iteration."""
+    from twilight_tpu_torch.config import Params
+    from twilight_tpu_torch.tools.sp_score import sp_score
+    rec, wd, out, fa = run_workflow(
+        torch, td, SIM10K,
+        (GOLDEN_WF10K_TREE0, GOLDEN_WF10K_TREE1, GOLDEN_WF10K))
     param = Params.make("n")
     sp = sp_score(list(_read_fasta(out).values()), "n", param)
     batcher_ms = _batcher_ms(torch)
-    rec = {"wall_s": wall, "steps": steps, "launches": launches,
-           "md5": got["final"], "tree0_md5": got["iter0.nwk"],
-           "tree1_md5": got["iter1.nwk"], "sp_score": sp,
-           "batcher_ms": batcher_ms}
+    rec.update(sp_score=sp, batcher_ms=batcher_ms)
     print("[workflow] " + json.dumps(
         {k: v for k, v in rec.items() if k != "steps"}), flush=True)
     print(f"[workflow] iter0.nwk, iter1.nwk and the final md5 equal the "
@@ -1834,12 +1901,14 @@ def _rss_gib():
 
 
 def phase_scale(torch, td, sim=SIM40K, golden=GOLDEN_SIM40K,
-                which=("forced", "default")):
+                which=("forced", "default"), m=SCALE_M, extra=()):
     """Default mode with divide-and-conquer at scale (`sim`: sim40k, or
-    sim100k for scale100k), --rooted -m SCALE_M, through the entry point in
+    sim100k for scale100k, or prot20k with `extra` --type p for the
+    protein phase), --rooted -m `m` and `extra`, through the entry point in
     this process, each run of `which` held to md5 `golden`. Run A
     ("forced"), the card takes every pair (--backend cuda, the device
-    forced, no stealing): held to launches above 0 and
+    forced, no stealing): held to launches above 0, to launches above 0 of
+    both kernel instances of the run's profile width (leaf and freq), and
     to every non-empty pair resolved on the card or deferred at task 0
     (e2e_run); device_kernel.pack_batch is wrapped to count the freq pairs
     packed with a side above 10000 sequences (each must carry gap_char 0),
@@ -1859,8 +1928,10 @@ def phase_scale(torch, td, sim=SIM40K, golden=GOLDEN_SIM40K,
     and its max RSS so far, the subtrees' sizes and widths and the
     output's bytes; each output is deleted once its md5 is taken."""
     from twilight_tpu_torch.ops import device_kernel as dk
+    from twilight_tpu_torch.ops import talco_cuda
     name = sim[0]
-    args = simulate(td, *sim) + ["--rooted", "-m", str(SCALE_M)]
+    args = simulate(td, *sim) + ["--rooted", "-m", str(m), *extra]
+    p = 22 if "p" in extra else 6
     runs = {}
     real = dk.pack_batch
 
@@ -1913,7 +1984,8 @@ def phase_scale(torch, td, sim=SIM40K, golden=GOLDEN_SIM40K,
         rec["width"] = int(whole.group(1)) if whole else None
         print(f"[{name}] {label}: wall {rec['wall_s']:.3f} s; launches "
               f"{rec['launches']} (leaf {rec['leaf_launches']}, long "
-              f"{rec['long_launches']}, wide {rec['wide_launches']}); pairs "
+              f"{rec['long_launches']}, wide {rec['wide_launches']}; by "
+              f"instance {json.dumps(rec['by_instance'])}); pairs "
               f"{rec['pairs']}, on the card {rec['pairs_on_device']}, stolen "
               f"{rec['host_stolen']}, task-0 errors {rec['task0_errors']}, "
               f"host_wide {rec['host_wide']}; peak device memory "
@@ -1937,6 +2009,10 @@ def phase_scale(torch, td, sim=SIM40K, golden=GOLDEN_SIM40K,
                   f"{packed['max_side']} columns", flush=True)
             check(packed["above_10000"] > 0, f"{name}/{label}: no pair with "
                   "a side above 10000 sequences was packed")
+            for leaf in (True, False):
+                inst = talco_cuda.instance_name(p, leaf)
+                check(rec["by_instance"].get(inst, 0) > 0,
+                      f"{name}/{label}: {inst} never launched")
         return rec
 
     def counts():
@@ -1946,11 +2022,11 @@ def phase_scale(torch, td, sim=SIM40K, golden=GOLDEN_SIM40K,
 
     res = {}
     if "forced" in which:
-        res["forced"] = run(f"{name}_m{SCALE_M}_cuda", ["--backend", "cuda"],
+        res["forced"] = run(f"{name}_m{m}_cuda", ["--backend", "cuda"],
                             golden, counts(), task0_errors=None)
     if "all_columns" in which:
         res["all_columns"] = c = run(
-            f"{name}_m{SCALE_M}_r1_cuda", ["--backend", "cuda", "-r", "1"],
+            f"{name}_m{m}_r1_cuda", ["--backend", "cuda", "-r", "1"],
             golden, counts(), task0_errors=None)
         check(c["long_launches"] > 0
               and c["packed"]["above_10000_max_padlen"] > dk.SHORT_PADLEN,
@@ -1958,11 +2034,117 @@ def phase_scale(torch, td, sim=SIM40K, golden=GOLDEN_SIM40K,
               "packed its pairs above 10000 sequences at padlen "
               f"{c['packed']['above_10000_max_padlen']}")
     if "default" in which:
-        res["default"] = run(f"{name}_m{SCALE_M}_default", [], golden,
+        res["default"] = run(f"{name}_m{m}_default", [], golden,
                              force=False, steal=True)
         check(res["default"]["launches"] > 0,
               f"{name}: the default run made no launch")
     return res
+
+
+def changed_blosum62():
+    """A user matrix unlike any -b one: the port's BLOSUM62 scores (x 5)
+    with 15 added on the diagonal and W-Y set to 20."""
+    import numpy as np
+    from twilight_tpu_torch.config import Params
+    from twilight_tpu_torch.constants import letter_idx
+    mat = Params.make("p").scoring_matrix.copy()
+    mat[np.arange(20), np.arange(20)] += 15
+    w, y = letter_idx("p", "W"), letter_idx("p", "Y")
+    mat[w, y] = mat[y, w] = 20
+    return mat
+
+
+def phase_protein(torch, td, smi_line):
+    """The protein path at a protein user's sizes, through the entry points
+    in this process, each run held to recorded md5s (no native process):
+    prot20k (20000 x ~400 residues) --type p --rooted -m PROT_M forced and
+    with no --backend flag (phase_scale: 3 subtrees, a meta-tree merge with
+    a side above 10000 sequences, both protein kernel instances
+    launching); the prot5k workflow (run_workflow, --type p:
+    its protein count product on the card, with the letters, the one-hot
+    bytes and the peak device memory printed); prot_16 forced with -b 45
+    and -b 80 (the reference goldens) and with -x files written by
+    config.write_matrix_file: BLOSUM62 as -b 62 scores it (GOLDEN_PROT16)
+    and changed_blosum62 in another letter order (GOLDEN_PROT16_XCHANGED).
+    Ends with one [protein] summary line."""
+    from twilight_tpu_torch.config import Params, write_matrix_file
+    from twilight_tpu_torch.trees import estimate
+    res = {"prot20k": phase_scale(torch, td, PROT20K, GOLDEN_PROT20K,
+                                  m=PROT_M, extra=("--type", "p"))}
+    rec, wd, _, _ = run_workflow(
+        torch, td, PROT5K,
+        (GOLDEN_WFP5K_TREE0, GOLDEN_WFP5K_TREE1, GOLDEN_WFP5K), type_="p")
+    # what the count product of iteration 1 took: iter0's columns, masked
+    # and subsampled as msa_distances does, and their letters
+    mat, _ = estimate.msa_columns(
+        list(_read_fasta(os.path.join(wd, "iter0.aln")).values()))
+    letters = estimate.msa_letters(mat)
+    rec.update(count_rows=mat.shape[0], count_columns=mat.shape[1],
+               letters=len(letters),
+               one_hot_bytes=4 * mat.shape[0] * mat.shape[1] * len(letters))
+    print("[protein] workflow prot5k: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "steps"}), flush=True)
+    res["workflow"] = rec
+
+    runs = {}
+    prot = os.path.join(REPO, "tests", "data", "prot_16")
+    base = ["--backend", "cuda", "-t", prot + ".nwk", "-i", prot + ".fa",
+            "--type", "p"]
+    x62, xch = (os.path.join(td, n) for n in ("blosum62.x", "changed.x"))
+    write_matrix_file(x62, "p", Params.make("p").scoring_matrix, AA20)
+    write_matrix_file(xch, "p", changed_blosum62(), XCHANGED_ORDER)
+    for label, extra, golden in (
+            ("prot_16_b45", ["-b", "45"], GOLDEN_PROT16_B45),
+            ("prot_16_b80", ["-b", "80"], GOLDEN_PROT16_B80),
+            ("prot_16_x62", ["-x", x62], GOLDEN_PROT16),
+            ("prot_16_xchanged", ["-x", xch], GOLDEN_PROT16_XCHANGED)):
+        e2e_run(torch, runs, td, label, base + extra, golden)
+    res["matrices"] = runs
+
+    f, d = res["prot20k"]["forced"], res["prot20k"]["default"]
+    wall = {s["step"]: round(s["s"], 3) for s in rec["steps"]}
+    print(f"[protein] summary: prot20k --type p --rooted -m {PROT_M} "
+          f"forced {f['wall_s']:.3f} s ({f['launches']} launches by "
+          f"instance {json.dumps(f['by_instance'])}, long "
+          f"{f['long_launches']}, wide {f['wide_launches']}; "
+          f"{f['packed']['above_10000']} pairs packed with a side above "
+          f"10000, gap_char 0; peak device {f['peak_device_gib']:.3f} GiB, "
+          f"RSS {f['rss_gib']:.3f} GiB), no flag {d['wall_s']:.3f} s "
+          f"({d['launches']} launches, {d['host_stolen']} stolen), md5 "
+          f"{f['md5']}; workflow prot5k -n 2 {rec['wall_s']:.3f} s (steps "
+          f"{json.dumps(wall)}; one count product on the card, L "
+          f"{rec['letters']}, one-hots {rec['one_hot_bytes']} bytes; peak "
+          f"device {rec['peak_device_gib']:.3f} GiB), trees and final md5 "
+          f"the native workflow's; prot_16 forced: " + ", ".join(
+              f"{k[8:]} {r['md5'][:8]} ({r['launches']} launches)"
+              for k, r in runs.items()) + f"; card {smi_line}", flush=True)
+    return res
+
+
+def phase_protein_trace(torch, td):
+    """Where prot20k's forced run (as the protein phase runs it) spends
+    its time: the run under a torch.profiler trace (the CLI's
+    --profile-trace), held to GOLDEN_PROT20K and to every launch showing
+    in the trace; the TALCO kernels' device time, the copies', the card's
+    busy time and its idle share over the run's wall."""
+    from twilight_tpu_torch.tools.talco_inputs import trace_device_ms
+    trace = os.path.join(td, "prot20k_trace")
+    tr = e2e_run(torch, {}, td, "prot20k_traced", [
+        "--backend", "cuda", *simulate(td, *PROT20K), "--type", "p",
+        "--rooted", "-m", str(PROT_M), "-d",
+        os.path.join(td, "prot20k_traced_tmp"), "--profile-trace", trace],
+        GOLDEN_PROT20K, task0_errors=None)
+    os.remove(os.path.join(td, "prot20k_traced.aln"))
+    tr.update(trace_device_ms(os.path.join(trace, "trace.json")))
+    tr["idle_share"] = 1.0 - tr["busy_ms"] / (1e3 * tr["wall_s"])
+    print("[protein_trace] prot20k forced, traced: " + json.dumps(
+        {k: tr[k] for k in ("wall_s", "launches", "talco_kernels", "talco_ms",
+                            "kernel_ms", "copy_ms", "busy_ms",
+                            "idle_share")}), flush=True)
+    check(tr["talco_kernels"] == tr["launches"],
+          f"protein_trace: the trace shows {tr['talco_kernels']} TALCO "
+          f"kernels of {tr['launches']} launches")
+    return tr
 
 
 def phase_census(attributes):
@@ -2292,9 +2474,10 @@ PHASES = ("parity", "long_parity", "wide", "time", "long_time", "gate",
           "probes", "e2e", "long_e2e", "workflow", "products", "placement",
           "multihost", "multidevice", "fuzz", "bench", "quality",
           "frontdoor", "census", "entry", "dryrun", "resume", "merge",
-          "crosslevel", "scale", "scale_r1", "scale100k")
-# phases that run only when --only names them (each a few minutes more)
-ON_REQUEST = {"scale_r1", "scale100k"}
+          "crosslevel", "scale", "protein", "protein_trace", "scale_r1",
+          "scale100k")
+# phases that run only when --only names them (each a minute or more)
+ON_REQUEST = {"protein_trace", "scale_r1", "scale100k"}
 
 
 def main(argv=None):
@@ -2303,8 +2486,8 @@ def main(argv=None):
                                  "GPU (module doc)")
     ap.add_argument("--only", help="comma-separated phases to run (of "
                     f"{', '.join(PHASES)}; products needs workflow, merge "
-                    "needs resume; scale_r1 and scale100k run only when "
-                    "named here); "
+                    "needs resume; protein_trace, scale_r1 and scale100k "
+                    "run only when named here); "
                     "the kernels' JSON line needs all the others")
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
@@ -2425,6 +2608,8 @@ def main(argv=None):
         merged = run("merge", phase_merge, torch, td, resumed)
         xl = run("crosslevel", phase_crosslevel, torch, td, runs)
         scale = run("scale", phase_scale, torch, td)
+        protein = run("protein", phase_protein, torch, td, smi_line)
+        run("protein_trace", phase_protein_trace, torch, td)
         run("scale_r1", phase_scale, torch, td, SIM40K, GOLDEN_SIM40K_R1,
             ("all_columns",))
         run("scale100k", phase_scale, torch, td, SIM100K, GOLDEN_SIM100K)
@@ -2592,6 +2777,25 @@ def main(argv=None):
         talco("talco_xdrop (K5: wide route, ladder width above 4096)", wide,
               long_runs["w20_cuda"]["wide_launches"], wide_err,
               wide["plain_ms_per_pair"], REPLACES_WIDE, "wide_launches")]
+    # the protein instances (the protein phase's path): launches on the
+    # prot20k forced run and the prot5k workflow, each counted from 0 just
+    # before it; times from the time phase (batch 128, padlen 2048)
+    from twilight_tpu_torch.ops.talco_cuda import instance_name
+    for kid, leaf, key in (("K1", False, "protein freq"),
+                           ("K2", True, "protein leaf")):
+        inst, res = instance_name(22, leaf), timing[key]
+        kernels.append({
+            "name": f"talco_xdrop {inst} ({kid}: {key}, padlen 2048)",
+            "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": protein["prot20k"]["forced"]["by_instance"].get(
+                inst, 0),
+            "max_abs_err": parity_err, "ms": res["ms_per_pair_resident"],
+            "plain_ms": res["plain_ms_per_pair"],
+            "bound_ms": res["bound_ms_per_pair"],
+            "bound_by": res["bound_by"], "library_ms": None,
+            "unit": "per pair", "us_per_diagonal": res["us_per_diagonal"],
+            "launches_prot5k_workflow": protein["workflow"][
+                "by_instance"].get(inst, 0)})
     from twilight_tpu_torch.tools import talco_inputs as ti
     for fn, kid, replaces, main_variant, ops, layout in PROBES:
         vs = {r["name"]: r for r in probes.values()

@@ -132,3 +132,38 @@ def test_quality_cpu_backend_equals_native(monkeypatch, tmp_path):
         cpu = runs["cpu"]["results"][key]
         assert cpu["md5"] == nat["md5"], key
         assert cpu["sp_per_pair"] == nat["sp_per_pair"], key
+
+
+def test_trace_device_ms_sums_and_unions(tmp_path):
+    """talco_inputs.trace_device_ms on a hand-written chrome trace: the
+    TALCO kernels' time, every kernel's, the copies', and the card's busy
+    time as the union of overlapping device intervals (us in, ms out);
+    host events count for nothing."""
+    from twilight_tpu_torch.tools.talco_inputs import trace_device_ms
+    ev = [("kernel", "void talco_xdrop_kernel<22, false>(...)", 0, 100),
+          ("kernel", "void talco_xdrop_kernel<22, true>(...)", 50, 100),
+          ("kernel", "void at::native::fill(...)", 400, 10),
+          ("gpu_memcpy", "Memcpy HtoD", 140, 20),
+          ("gpu_memset", "Memset", 1000, 5),
+          ("cpu_op", "aten::copy_", 0, 5000)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": c, "name": n, "ts": t, "dur": d, "ph": "X"}
+        for c, n, t, d in ev] + [{"cat": "kernel", "name": "no dur"}]}))
+    got = trace_device_ms(str(path))
+    assert got == {"talco_ms": 0.2, "talco_kernels": 2, "kernel_ms": 0.21,
+                   "copy_ms": 0.025, "busy_ms": 0.175}
+
+
+def test_trace_device_ms_reads_a_cli_trace(tmp_path):
+    """The CLI's --profile-trace on the CPU (the plain version): a trace
+    that parses, with no device event in it."""
+    from twilight_tpu_torch import cli
+    from twilight_tpu_torch.tools.talco_inputs import trace_device_ms
+    prot = os.path.join(REPO, "tests", "data", "prot_16")
+    assert cli.main(["--backend", "cpu", "-t", prot + ".nwk", "-i",
+                     prot + ".fa", "--type", "p", "-o",
+                     str(tmp_path / "p.aln"), "--profile-trace",
+                     str(tmp_path / "tr")]) == 0
+    got = trace_device_ms(str(tmp_path / "tr" / "trace.json"))
+    assert got["talco_kernels"] == 0 and got["busy_ms"] == 0.0

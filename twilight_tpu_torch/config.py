@@ -202,6 +202,18 @@ def _parse_matrix_file(path: str, type_: str, msize: int, mat: np.ndarray,
         mat[msize - 1, :] = nscore
 
 
+def write_matrix_file(path: str, type_: str, mat: np.ndarray,
+                      letters: str) -> None:
+    """Writes the scores of `mat` (indexed by letter codes) between
+    `letters` as a `-x` file: the letters in a header row, then one row of
+    scores a letter, in that order (what _parse_matrix_file reads)."""
+    idx = [letter_idx(type_, c) for c in letters]
+    with open(path, "w") as f:
+        f.write(" ".join(letters) + "\n")
+        for i in idx:
+            f.write(" ".join(f"{float(mat[i, j]):g}" for j in idx) + "\n")
+
+
 def fmt_float(v: float) -> str:
     """C++ `std::ostream << float` default formatting (6 significant
     digits, %g style) — used by the stderr parity blocks."""

@@ -45,6 +45,7 @@ qry_len) exceeds `MAX_WINDOW`, which a correct packer never produces.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import List, Tuple
@@ -197,10 +198,20 @@ def talco_align(ints, floats, offs, ref, qry, matrix, *, p: int,
                            f"{build.error_string(rc)} (cudaError {rc})")
     with _launches_lock:
         talco_align.launches += 1
+        talco_align.by_instance[instance_name(p, leaf)] += 1
     return paths, tail
 
 
+def instance_name(p: int, leaf: bool) -> str:
+    """The kernel instance a launch of `p` profile rows takes, as the
+    build names it: talco_xdrop_kernel<P, LEAF>."""
+    return f"talco_xdrop_kernel<{p}, {'true' if leaf else 'false'}>"
+
+
+# launches of the kernel, in all and by instance; a caller zeroes them
+# (launches = 0, by_instance.clear()) before the run it counts
 talco_align.launches = 0
+talco_align.by_instance = collections.Counter()
 _launches_lock = threading.Lock()   # the batcher launches off the main thread
 
 

@@ -131,11 +131,8 @@ def _cli(torch, argv, trace_dir=None):
         raise SystemExit(f"{argv}: exit code {rc}")
     kernel_ms = None
     if trace_dir:
-        with open(os.path.join(trace_dir, "trace.json")) as f:
-            events = json.load(f).get("traceEvents", [])
-        kernel_ms = sum(e.get("dur", 0) for e in events
-                        if e.get("cat") == "kernel"
-                        and "talco_xdrop" in e.get("name", "")) / 1e3
+        kernel_ms = _inputs().trace_device_ms(
+            os.path.join(trace_dir, "trace.json"))["talco_ms"]
     return wall, kernel_ms
 
 

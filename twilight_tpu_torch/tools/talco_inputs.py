@@ -5,10 +5,11 @@ Shared by `chip_smoke.py` and the tools (`fuzz_talco`, `bench_kernel`,
 pipeline hands the batcher, the batcher's packers, one launch on the card
 or on the CPU, the host references a launch is held to (the NumPy oracle,
 the native host kernel, the plain version) and the comparison, a
-CUDA-event timer, the launch round trip behind the level gate, and the
-kernel's bound on the H100. The package's modules are imported inside the
-functions, so that a caller may put another checkout's package first on
-sys.path and measure it on the same inputs.
+CUDA-event timer, the launch round trip behind the level gate, the
+kernel's bound on the H100, and the device time in a profiler trace. The
+package's modules are imported inside the functions, so that a caller
+may put another checkout's package first on sys.path and measure it on
+the same inputs.
 """
 from __future__ import annotations
 
@@ -375,3 +376,33 @@ def gate_round_trip(torch) -> dict:
             "round_trip_ms": float(np.median(walls[1:])) * 1e3,
             "min_ms": min(walls[1:]) * 1e3, "max_ms": max(walls[1:]) * 1e3,
             "reps": GATE_REPS}
+
+
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_device_ms(path: str) -> dict:
+    """Device time in a torch.profiler chrome trace (the CLI's
+    --profile-trace DIR writes DIR/trace.json), ms: the TALCO kernel's
+    launches (`talco_ms`, over `talco_kernels` events), every kernel
+    (`kernel_ms`), the copies and memsets (`copy_ms`), and `busy_ms`, the
+    union of all their intervals: the time the card ran anything."""
+    import json
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    dev = [e for e in events if e.get("cat") in DEVICE_EVENTS and "dur" in e]
+    talco = [e for e in dev if e["cat"] == "kernel"
+             and "talco_xdrop" in e.get("name", "")]
+    busy, end = 0.0, None
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        if end is None or a >= end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return {"talco_ms": sum(e["dur"] for e in talco) / 1e3,
+            "talco_kernels": len(talco),
+            "kernel_ms": sum(e["dur"] for e in dev
+                             if e["cat"] == "kernel") / 1e3,
+            "copy_ms": sum(e["dur"] for e in dev
+                           if e["cat"] != "kernel") / 1e3,
+            "busy_ms": busy / 1e3}
