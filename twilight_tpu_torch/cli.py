@@ -21,6 +21,7 @@ import os
 import sys
 import time
 
+from . import trace
 from .config import (INT32_MAX, PLACE_WO_TREE, Options, Params,
                      detect_mode, detect_type)
 from .parallel.distributed import (detect_topology, detect_topology_implicit,
@@ -303,12 +304,40 @@ def main(argv=None) -> int:
 
 def run(argv=None):
     """`main`, returning (exit code, the DP batcher or None) so that a
-    caller can read the batcher's counts."""
+    caller can read the batcher's counts. The run's tracer (`trace`)
+    spans the call; its totals reach the batcher's stats."""
+    t0_ns = time.perf_counter_ns()
     t_main0 = time.time()
     args = build_parser().parse_args(argv)
+    tracer = trace.start(bool(args.profile_trace), t0_ns)
+    kernel = None
+    try:
+        with trace.span("run.setup"):
+            made = _setup(args)
+        if made is None:
+            return 1, None
+        opt, param, kernel = made
+        err = _align(args, opt, param, kernel, tracer)
+    finally:
+        trace.finish(tracer, kernel)
+    if kernel is not None:
+        if args.profile_trace:
+            tracer.export(os.path.join(args.profile_trace, "trace.json"))
+        print(kernel.summary(), file=sys.stderr)
+    if err is not None:
+        print(f"ERROR: {err}", file=sys.stderr)
+        return 1, kernel
+    print(f"Total Execution in {time.time() - t_main0:.6f} s",
+          file=sys.stderr)
+    return 0, kernel
+
+
+def _setup(args):
+    """(options, scores, the DP batcher or None) of the parsed flags, or
+    None after printing why the run cannot go on."""
     if not args.output:
         print("ERROR: Output file name is required.", file=sys.stderr)
-        return 1, None
+        return None
     try:
         opt = options_from_args(args)
         if args.hosts or args.host_id >= 0:
@@ -318,11 +347,11 @@ def run(argv=None):
             opt.n_hosts, opt.host_id = detect_topology_implicit()
     except ValueError as e:
         print(f"ERROR: {e}", file=sys.stderr)
-        return 1, None
+        return None
     if opt.n_hosts > 1 and not opt.temp_dir:
         print("ERROR: multi-host runs need a shared temp dir (-d) and "
               "divide-and-conquer (-m).", file=sys.stderr)
-        return 1, None
+        return None
     param = Params.make(
         opt.type, match=args.match, mismatch=args.mismatch,
         transition=args.transition, gap_open=args.gap_open,
@@ -342,7 +371,14 @@ def run(argv=None):
             kernel = make_device_kernel(opt, param)
         except RuntimeError as e:
             print(f"ERROR: {e}", file=sys.stderr)
-            return 1, None
+            return None
+    return opt, param, kernel
+
+
+def _align(args, opt, param, kernel, tracer):
+    """The pipeline (`modes.run`), under --profile-trace inside a
+    torch.profiler that DIR/trace.json receives; the ValueError that
+    stopped it, or None."""
     prof = None
     if args.profile_trace and kernel is not None:
         from torch.profiler import ProfilerActivity, profile
@@ -351,12 +387,12 @@ def run(argv=None):
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
         prof.__enter__()
-    err = None
+        tracer.profiler_started()
     try:
         modes.run(opt, param, kernel=kernel, prune=args.prune,
                   write_prune=args.write_prune)
     except ValueError as e:
-        err = e
+        return e
     finally:
         if kernel is not None:
             kernel.close()
@@ -365,14 +401,7 @@ def run(argv=None):
             os.makedirs(args.profile_trace, exist_ok=True)
             prof.export_chrome_trace(
                 os.path.join(args.profile_trace, "trace.json"))
-    if kernel is not None:
-        print(kernel.summary(), file=sys.stderr)
-    if err is not None:
-        print(f"ERROR: {err}", file=sys.stderr)
-        return 1, kernel
-    print(f"Total Execution in {time.time() - t_main0:.6f} s",
-          file=sys.stderr)
-    return 0, kernel
+    return None
 
 
 if __name__ == "__main__":

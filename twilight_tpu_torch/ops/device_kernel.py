@@ -29,8 +29,12 @@ every device's launch holds pairs of similar sizes. Stealing and the
 ladder work on the launches of every device alike; the bits do not depend
 on which device aligned a pair.
 
-Under TWILIGHT_PROFILE (read at each call) it prints to stderr, in the
-JAX batcher's `[dev]` lines' place (its device_kernel.py:538, 675, 695,
+The run's tracer (`trace`) times a call (`batcher.call`), each launch's
+packing (`batcher.pack`), issue (`batcher.launch`) and wait on its event
+(`batcher.wait`), and each stolen pair (`batcher.steal`); `stats` counts
+the DP cells of every tail the batcher reads (`dp_cells`). Where the
+tracer is on, the batcher prints from those spans to stderr, in the JAX
+batcher's `[dev]` lines' place (its device_kernel.py:538, 675, 695,
 768): one line a launch, when its round ends (route, padlen, the pairs'
 widest ladder width, --pair-batch, pairs, and the seconds of packing,
 of issuing the launch, and of the host's wait for its result; a launch
@@ -45,12 +49,12 @@ from __future__ import annotations
 import os
 import sys
 import threading
-import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import Options, Params
 from ..constants import letter_lut
 from ..pipeline.aligner import _run_talco_with_retries, host_pool_size
@@ -316,13 +320,15 @@ class DeviceTalco:
         # counts the launches of each device in `devices` (of the plain
         # version on a CPU device); leaf_launches, long_launches and
         # wide_launches count launches by route on either device, and
-        # ladder_relaunches the pairs the retry ladder sent back to one
+        # ladder_relaunches the pairs the retry ladder sent back to one;
+        # dp_cells sums the DP cells of the tails read
         self.stats = {"launches": 0, "pairs": 0, "zero_length": 0,
                       "pairs_on_device": 0, "host_stolen": 0,
                       "err3_fallbacks": 0, "task0_errors": 0,
                       "leaf_launches": 0, "long_launches": 0,
                       "wide_launches": 0,
                       "ladder_relaunches": 0, "host_wide": 0,
+                      "dp_cells": 0,
                       "launches_by_device": [0] * len(self.devices)}
 
     def close(self) -> None:
@@ -342,45 +348,45 @@ class DeviceTalco:
                                   self.streams[q])
         cuda = device.type == "cuda"
         self.stats["launches_by_device"][q] += 1
-        t0 = time.perf_counter()
-        if leaf:
-            st = pack_batch_leaf(chunk, prepared, metas, padlen, self.p,
-                                 self.param, flen_param, xdrop,
-                                 marker=self.marker, pin=cuda)
-        else:
-            st = pack_batch(chunk, prepared, metas, task, padlen, self.p,
-                            self.param, flen_param, xdrop,
-                            marker=self.marker, pin=cuda)
+        with trace.span("batcher.pack", mark=False) as pack:
+            if leaf:
+                st = pack_batch_leaf(chunk, prepared, metas, padlen, self.p,
+                                     self.param, flen_param, xdrop,
+                                     marker=self.marker, pin=cuda)
+            else:
+                st = pack_batch(chunk, prepared, metas, task, padlen,
+                                self.p, self.param, flen_param, xdrop,
+                                marker=self.marker, pin=cuda)
         b = len(chunk)
         nbytes = b * 2 * padlen + b * TAIL * 4
         scratch = int(st.offs[-1])
-        t1 = time.perf_counter()
-        if not cuda:
-            host = torch.empty(nbytes, dtype=torch.uint8)
-            talco_cuda.talco_align(
-                st.ints, st.floats, st.offs, st.ref, st.qry, matrix,
-                p=self.p, marker=self.marker, scratch_bytes=scratch,
-                out=out_views(host, b, padlen))
-            launch = _Launch(chunk, st, host, None, padlen)
-            launch.pack_s = t1 - t0
-            launch.launch_s = time.perf_counter() - t1
-            return launch
-        with torch.cuda.device(device), torch.cuda.stream(stream):
-            dev = st.views(st.buf.to(device, non_blocking=True))
-            obuf = torch.empty(nbytes, dtype=torch.uint8, device=device)
-            offs, ints, floats, ref, qry = dev
-            talco_cuda.talco_align(
-                ints, floats, offs, ref, qry, matrix, p=self.p,
-                marker=self.marker, scratch_bytes=scratch,
-                out=out_views(obuf, b, padlen))
-            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-            host.copy_(obuf, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(stream)
-        self.stats["launches"] += 1
+        with trace.span("batcher.launch", mark=False) as issue:
+            if not cuda:
+                host = torch.empty(nbytes, dtype=torch.uint8)
+                talco_cuda.talco_align(
+                    st.ints, st.floats, st.offs, st.ref, st.qry, matrix,
+                    p=self.p, marker=self.marker, scratch_bytes=scratch,
+                    out=out_views(host, b, padlen))
+                ev = None
+            else:
+                with torch.cuda.device(device), torch.cuda.stream(stream):
+                    dev = st.views(st.buf.to(device, non_blocking=True))
+                    obuf = torch.empty(nbytes, dtype=torch.uint8,
+                                       device=device)
+                    offs, ints, floats, ref, qry = dev
+                    talco_cuda.talco_align(
+                        ints, floats, offs, ref, qry, matrix, p=self.p,
+                        marker=self.marker, scratch_bytes=scratch,
+                        out=out_views(obuf, b, padlen))
+                    host = torch.empty(nbytes, dtype=torch.uint8,
+                                       pin_memory=True)
+                    host.copy_(obuf, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                self.stats["launches"] += 1
         launch = _Launch(chunk, st, host, ev, padlen)
-        launch.pack_s = t1 - t0
-        launch.launch_s = time.perf_counter() - t1
+        launch.pack_s = pack.ns / 1e9
+        launch.launch_s = issue.ns / 1e9
         return launch
 
     def _host_align(self, prep, meta, task):
@@ -397,12 +403,13 @@ class DeviceTalco:
 
     def _collect(self, launch, results, prepared, task, lock, claimed,
                  pending, flen_param, xdrop, note) -> None:
-        t0 = time.perf_counter()
-        launch.wait()
-        launch.wait_s = time.perf_counter() - t0
+        with trace.span("batcher.wait", mark=False) as wait:
+            launch.wait()
+        launch.wait_s = wait.ns / 1e9
         b = len(launch.chunk)
         paths, tail = out_views(launch.host_out, b, launch.padlen)
         paths, tail = paths.numpy(), tail.numpy()
+        self.stats["dp_cells"] += int(tail[:, 2].sum(dtype=np.int64))
         for bi, i in enumerate(launch.chunk):
             with lock:
                 if i in claimed:
@@ -436,6 +443,16 @@ class DeviceTalco:
 
     def __call__(self, prepared, metas, database, option, param,
                  on_final=None) -> List[Optional[np.ndarray]]:
+        with trace.span("batcher.call", mark=False) as call:
+            results, done = self._align(prepared, metas, database, param,
+                                        on_final)
+        if done is not None:
+            print(f"{done} wall={call.ns / 1e9:.3f}s", file=sys.stderr)
+        return results
+
+    def _align(self, prepared, metas, database, param, on_final):
+        """The body of a call: (results, the start of the call's `[dev]`
+        line, or None where the tracer is off)."""
         note = on_final or (lambda i, p: None)
         task = database.current_task
         n = len(prepared)
@@ -453,12 +470,11 @@ class DeviceTalco:
             else:
                 pending.append(i)
         no_steal = bool(os.environ.get("TWILIGHT_NO_STEAL"))
-        profile = bool(os.environ.get("TWILIGHT_PROFILE"))
-        t_call0 = time.perf_counter()
+        profile = trace.on()
         on_device0 = self.stats["pairs_on_device"]
         stolen0 = self.stats["host_stolen"]
         launches0 = sum(self.stats["launches_by_device"])
-        steal_s = [0.0]     # the host's steal seconds, over its threads
+        steal_ns = [0]      # the host's steal time, over its threads
 
         rounds = 0
         while pending and rounds < MAX_ROUNDS:
@@ -536,11 +552,12 @@ class DeviceTalco:
                 return None
 
             def _steal_one(i):
-                t0 = time.perf_counter()
-                results[i] = self._host_align(prepared[i], metas[i], task)
+                with trace.span("batcher.steal", mark=False) as steal:
+                    results[i] = self._host_align(prepared[i], metas[i],
+                                                  task)
                 with lock:
                     self.stats["host_stolen"] += 1
-                    steal_s[0] += time.perf_counter() - t0
+                    steal_ns[0] += steal.ns
                 note(i, results[i])
 
             def _stealer():
@@ -577,15 +594,14 @@ class DeviceTalco:
         for i in pending:
             results[i] = None
             note(i, None)
-        if profile:
-            print(f"    [dev] call done: pairs={n} "
-                  f"device={self.stats['pairs_on_device'] - on_device0} "
-                  f"host-stolen={self.stats['host_stolen'] - stolen0} "
-                  f"steal_dp={steal_s[0]:.3f}s launches="
-                  f"{sum(self.stats['launches_by_device']) - launches0} "
-                  f"wall={time.perf_counter() - t_call0:.3f}s",
-                  file=sys.stderr)
-        return results
+        if not profile:
+            return results, None
+        return results, (
+            f"    [dev] call done: pairs={n} "
+            f"device={self.stats['pairs_on_device'] - on_device0} "
+            f"host-stolen={self.stats['host_stolen'] - stolen0} "
+            f"steal_dp={steal_ns[0] / 1e9:.3f}s launches="
+            f"{sum(self.stats['launches_by_device']) - launches0}")
 
     def _print_round(self, launches, routes) -> None:
         """The TWILIGHT_PROFILE lines of one round's launches (module

@@ -12,14 +12,14 @@ from __future__ import annotations
 import os
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_PROFILE = bool(os.environ.get("TWILIGHT_PROFILE"))
-
+from .. import trace
 from ..config import MERGE_MSA, PLACE_WO_TREE, Options, Params
 from ..core.seqdb import SequenceDB
 from ..ops import talco_host, talco_np
@@ -68,13 +68,14 @@ def host_s_per_col(option: Options, param: Params) -> float:
         go = (np.full(n, param.gap_open, np.float32),) * 2
         ge = (np.full(n, param.gap_extend, np.float32),) * 2
         t0 = time.time()
-        _run_talco_with_retries(fr, fq, go, ge, (1.0, 1.0), (n, n),
-                                param, False, 0, option)
+        with trace.span("level.dp_host"):
+            _run_talco_with_retries(fr, fq, go, ge, (1.0, 1.0), (n, n),
+                                    param, False, 0, option)
         _host_s_per_col = min(max((time.time() - t0) / (2 * n), 1e-6),
                               5e-4)
     except Exception:
         _host_s_per_col = 15e-6
-    if _PROFILE:
+    if trace.on():
         print(f"  [profile] host DP calibration: "
               f"{_host_s_per_col * 1e6:.1f} us/col", file=sys.stderr)
     return _host_s_per_col
@@ -160,9 +161,8 @@ def host_pool_size(option: Options) -> int:
                else (os.cpu_count() or 1))
 
 
-def _precompute_host_paths(pairs, prepared, metas, device_paths,
-                           database: SequenceDB, option: Options,
-                           param: Params):
+def _precompute_host_paths(pairs, prepared, metas, database: SequenceDB,
+                           option: Options, param: Params):
     """Run the host DP concurrently for every pair the post loop will need.
 
     The reference runs the whole per-pair pipeline under a TBB parallel_for
@@ -174,8 +174,6 @@ def _precompute_host_paths(pairs, prepared, metas, device_paths,
     task = database.current_task
     todo = []
     for n_idx, pair in enumerate(pairs):
-        if device_paths is not None and device_paths[n_idx] is not None:
-            continue
         ref_len, qry_len, _, _ = metas[n_idx]
         if ref_len == 0 or qry_len == 0:
             continue
@@ -229,9 +227,10 @@ def _post_one(n_idx, pair, prep, meta, path, database: SequenceDB,
                 # the host ladder is the authority on deferral: confirm a
                 # device/steal failure before deferring the pair
                 num = (float(ref_num), float(qry_num))
-                path, needs_fallback = _run_talco_with_retries(
-                    freq_ref, freq_qry, gap_op, gap_ex, num, lens,
-                    param, gap_char_zero, task, option)
+                with trace.span("level.dp_host", mark=False):
+                    path, needs_fallback = _run_talco_with_retries(
+                        freq_ref, freq_qry, gap_op, gap_ex, num, lens,
+                        param, gap_char_zero, task, option)
                 if needs_fallback:
                     fallback_pairs.append(n_idx)
                     return
@@ -269,21 +268,64 @@ def align_pairs(pairs: List, database: SequenceDB, option: Options,
                 fallback_out: Optional[List[int]] = None) -> None:
     """Align one level's batch of node pairs.
 
-    `kernel`, when given, is a batched DP callable
-    (prepared_pairs -> list of (path | None)) used instead of the per-pair
-    NumPy oracle; failed entries fall back to the oracle's retry ladder.
-    When the device is used, the kernel call runs in a background thread
-    and each pair's post phase runs (in pair order) as soon as its result
-    is final — overlapping host post work with device compute, like the
-    reference's per-pair TBB pipeline (alignment-cpu.cpp:46) but with the
+    `kernel`, when given, is the DP batcher (ops/device_kernel.py:
+    prepared pairs -> list of (path | None), each result also handed to
+    `on_final` as soon as it is final); failed entries fall back to the
+    host retry ladder. When the level gate sends the level to the
+    batcher, the call runs in a background thread and each pair's post
+    phase runs (in pair order) as soon as its result is final —
+    overlapping host post work with device compute, like the reference's
+    per-pair TBB pipeline (alignment-cpu.cpp:46) but with the
     deterministic commit order the byte-parity bar requires.
     """
-    fallback_pairs: List[int] = []
-    task = database.current_task
+    with trace.span("level"):
+        fallback_pairs = _align_level(pairs, database, option, param,
+                                      kernel)
+        trace.count("deferred", len(fallback_pairs))
+        if fallback_out is not None:
+            # cross-level scheduling: the caller materializes deferrals in
+            # global (level, index) order after all rounds — recording
+            # only keeps the reference's fallback-list order intact
+            fallback_out.extend(fallback_pairs)
+        elif fallback_pairs:
+            helpers.fallback_to_deferred(fallback_pairs, pairs, database,
+                                         option.no_filter)
 
-    t0 = time.time()
+
+def _align_level(pairs, database: SequenceDB, option: Options,
+                 param: Params, kernel) -> List[int]:
+    """Prep, the gate's route, DP and post of one level; the indices of
+    the pairs deferred, in the reference's order."""
+    fallback_pairs: List[int] = []
     metas = [(p[0].aln_len, p[1].aln_len, p[0].aln_num, p[1].aln_num)
              for p in pairs]
+    with trace.span("level.prep") as prep:
+        prepared = _prepare_level(pairs, metas, database, option, param)
+    use_device = kernel is not None and _gate(prepared, option, param)
+    trace.count("levels_card" if use_device else "levels_host")
+    trace.count("pairs_card" if use_device else "pairs_host", len(pairs))
+    if use_device:
+        wait_ns, post_ns = _post_pipelined(pairs, prepared, metas, kernel,
+                                           database, option, param,
+                                           fallback_pairs)
+        if trace.on():
+            print(f"  [profile] {len(pairs)} pairs on the card: "
+                  f"prep={prep.ns / 1e9:.2f}s wait={wait_ns / 1e9:.2f}s "
+                  f"post={post_ns / 1e9:.2f}s", file=sys.stderr)
+    else:
+        dp_ns, post_ns = _post_host(pairs, prepared, metas, database,
+                                    option, param, fallback_pairs)
+        if trace.on():
+            print(f"  [profile] {len(pairs)} pairs on the host: "
+                  f"prep={prep.ns / 1e9:.2f}s dp={dp_ns / 1e9:.2f}s "
+                  f"post={post_ns / 1e9:.2f}s", file=sys.stderr)
+    return fallback_pairs
+
+
+def _prepare_level(pairs, metas, database: SequenceDB, option: Options,
+                   param: Params) -> list:
+    """`_prepare_pair` of every pair, pooled across pairs."""
+    task = database.current_task
     dump = os.environ.get("TW_DEBUG_DUMP_PAIR")
     pool = host_pool_size(option)
     if pool > 1 and len(pairs) > 3 and not dump:
@@ -292,12 +334,11 @@ def align_pairs(pairs: List, database: SequenceDB, option: Options,
         # GIL, so prep pools across pairs like the reference's TBB
         # parallel_for over the per-pair pipeline (alignment-cpu.cpp:46)
         with ThreadPoolExecutor(max_workers=pool) as ex:
-            prepared = list(ex.map(
+            return list(ex.map(
                 lambda pr: _prepare_pair(pr, database, option, param),
                 pairs))
-    else:
-        prepared = [_prepare_pair(pair, database, option, param)
-                    for pair in pairs]
+    prepared = [_prepare_pair(pair, database, option, param)
+                for pair in pairs]
     for n_idx, pair in enumerate(pairs):
         ref, qry = pair
         prep = prepared[n_idx]
@@ -314,116 +355,101 @@ def align_pairs(pairs: List, database: SequenceDB, option: Options,
                      cons_r=cons[0], cons_q=cons[1],
                      gappy_r=np.asarray(gappy[0], dtype=np.int64),
                      gappy_q=np.asarray(gappy[1], dtype=np.int64))
-    t_prep = time.time() - t0
+    return prepared
 
-    # batched device kernel (GPU) over all prepared pairs, if provided and
-    # the level is wide enough to amortize the launch round-trip
-    t0 = time.time()
-    use_device = False
-    if kernel is not None:
-        poll = getattr(kernel, "poll_ready", None)
-        if poll is not None and not poll():
-            # lazy auto-mode kernel still building (device discovery /
-            # warm-up in a background thread): this level runs on the
-            # host engine; later levels re-check. Bit-identical either
-            # way, so the cutover level never changes output bytes.
-            kernel = None
-    if kernel is not None:
-        est_host_s = sum(
-            (prep[4][0] + prep[4][1]) * host_s_per_col(option, param)
-            for prep in prepared) / host_pool_size(option)
-        use_device = (est_host_s >= _DEVICE_MIN_EST_S
-                      or not talco_host.available()
-                      or bool(os.environ.get("TWILIGHT_FORCE_DEVICE")))
 
-    if use_device and getattr(kernel, "supports_on_final", False):
-        # pipelined: kernel in a background thread; post each pair in
-        # ORDER as soon as its result is final
-        import threading
-        n = len(pairs)
-        final = [False] * n
-        paths: List[Optional[np.ndarray]] = [None] * n
-        cond = threading.Condition()
-        kernel_err: List[BaseException] = []
+def _gate(prepared, option: Options, param: Params) -> bool:
+    """The level gate: the batcher when the level's host-DP estimate
+    reaches _DEVICE_MIN_EST_S (or without a host kernel, or under
+    TWILIGHT_FORCE_DEVICE); else the host kernel."""
+    est_host_s = sum(
+        (prep[4][0] + prep[4][1]) * host_s_per_col(option, param)
+        for prep in prepared) / host_pool_size(option)
+    return (est_host_s >= _DEVICE_MIN_EST_S
+            or not talco_host.available()
+            or bool(os.environ.get("TWILIGHT_FORCE_DEVICE")))
 
-        def on_final(i, path):
+
+def _post_pipelined(pairs, prepared, metas, kernel, database: SequenceDB,
+                    option: Options, param: Params,
+                    fallback_pairs: List[int]):
+    """The batcher in a background thread; each pair's post phase in
+    ORDER as soon as its result is final. (wait ns, post ns) of this
+    thread, from its spans."""
+    task = database.current_task
+    n = len(pairs)
+    final = [False] * n
+    paths: List[Optional[np.ndarray]] = [None] * n
+    cond = threading.Condition()
+    kernel_err: List[BaseException] = []
+
+    def on_final(i, path):
+        with cond:
+            if not final[i]:
+                paths[i] = path
+                final[i] = True
+                cond.notify_all()
+
+    def run_kernel():
+        try:
+            res = kernel(prepared, metas, database, option, param,
+                         on_final=on_final)
+            for i, r in enumerate(res):
+                on_final(i, r)
+        except BaseException as e:  # surface in main thread
+            kernel_err.append(e)
+        finally:
             with cond:
-                if not final[i]:
-                    paths[i] = path
+                for i in range(n):
                     final[i] = True
-                    cond.notify_all()
+                cond.notify_all()
 
-        def run_kernel():
-            try:
-                res = kernel(prepared, metas, database, option, param,
-                             on_final=on_final)
-                for i, r in enumerate(res):
-                    on_final(i, r)
-            except BaseException as e:  # surface in main thread
-                kernel_err.append(e)
-            finally:
-                with cond:
-                    for i in range(n):
-                        final[i] = True
-                    cond.notify_all()
-
-        th = threading.Thread(target=run_kernel)
-        th.start()
-        t_post = 0.0
-        for n_idx, pair in enumerate(pairs):
+    th = threading.Thread(target=run_kernel)
+    th.start()
+    wait_ns = post_ns = 0
+    for n_idx, pair in enumerate(pairs):
+        with trace.span("level.wait", mark=False) as sp:
             with cond:
                 while not final[n_idx] and not kernel_err:
                     cond.wait(0.5)
-            if kernel_err:
-                break
-            tp0 = time.time()
+        wait_ns += sp.ns
+        if kernel_err:
+            break
+        with trace.span("level.post", mark=False) as sp:
             _post_one(n_idx, pair, prepared[n_idx], metas[n_idx],
                       paths[n_idx], database, option, param, task,
                       fallback_pairs, recheck_none=True)
-            t_post += time.time() - tp0
+        post_ns += sp.ns
+    with trace.span("level.wait", mark=False) as sp:
         th.join()
-        if kernel_err:
-            raise kernel_err[0]
-        if _PROFILE:
-            print(f"  [profile] {len(pairs)} pairs: prep={t_prep:.2f}s "
-                  f"device+post={time.time() - t0:.2f}s "
-                  f"(post work {t_post:.2f}s, overlapped)",
-                  file=sys.stderr)
-    else:
-        device_paths: Optional[List[Optional[np.ndarray]]] = None
-        if use_device:
-            device_paths = kernel(prepared, metas, database, option, param)
-        t_dev = time.time() - t0
-        t0 = time.time()
+    wait_ns += sp.ns
+    if kernel_err:
+        raise kernel_err[0]
+    return wait_ns, post_ns
 
-        host_paths = {}
-        if host_pool_size(option) > 1:
-            host_paths = _precompute_host_paths(
-                pairs, prepared, metas, device_paths, database, option,
-                param)
 
-        for n_idx, pair in enumerate(pairs):
-            path = device_paths[n_idx] if device_paths is not None else None
-            recheck = True
-            if path is None and n_idx in host_paths:
-                path, needs_fallback = host_paths[n_idx]
-                if needs_fallback:
-                    path = None
-                recheck = False
+def _post_host(pairs, prepared, metas, database: SequenceDB,
+               option: Options, param: Params, fallback_pairs: List[int]):
+    """The level on the host kernel: the DP pooled across pairs, then
+    each pair's post phase in order. (DP ns, post ns), from the spans."""
+    task = database.current_task
+    host_paths = {}
+    dp_ns = post_ns = 0
+    if host_pool_size(option) > 1:
+        with trace.span("level.dp_host") as sp:
+            host_paths = _precompute_host_paths(pairs, prepared, metas,
+                                                database, option, param)
+        dp_ns = sp.ns
+    for n_idx, pair in enumerate(pairs):
+        path, recheck = None, True
+        if n_idx in host_paths:
+            path, needs_fallback = host_paths[n_idx]
+            if needs_fallback:
+                path = None
+            recheck = False
+        with trace.span("level.post", mark=False) as sp:
             _post_one(n_idx, pair, prepared[n_idx], metas[n_idx], path,
                       database, option, param, task, fallback_pairs,
                       recheck_none=recheck)
-
-        if _PROFILE:
-            print(f"  [profile] {len(pairs)} pairs: prep={t_prep:.2f}s "
-                  f"device={t_dev:.2f}s post={time.time() - t0:.2f}s",
-                  file=sys.stderr)
-
-    if fallback_out is not None:
-        # cross-level scheduling: the caller materializes deferrals in
-        # global (level, index) order after all rounds — recording only
-        # keeps the reference's fallback-list order intact
-        fallback_out.extend(fallback_pairs)
-    elif fallback_pairs:
-        helpers.fallback_to_deferred(fallback_pairs, pairs, database,
-                                     option.no_filter)
+        post_ns += sp.ns
+    return dp_ns, post_ns

@@ -9,6 +9,7 @@ import sys
 import time
 import numpy as np
 
+from .. import trace
 from ..config import DEFAULT_ALN, PLACE_W_TREE, PLACE_WO_TREE, Options, Params
 from ..core.seqdb import SequenceDB, GAP
 from ..phylo.tree import Tree
@@ -21,7 +22,8 @@ def progressive_alignment(tree: Tree, database: SequenceDB, option: Options,
         print(f"Total {len(levels)} levels.", file=sys.stderr)
     for lvl, pairs in enumerate(levels):
         t0 = time.time()
-        schedule.update_node(pairs, database)
+        with trace.span("schedule"):
+            schedule.update_node(pairs, database)
         aligner.align_pairs(pairs, database, option, param, kernel=kernel)
         if os.environ.get("TW_DEBUG_LENS"):
             # parity-debug stream; format matches the patched reference
@@ -121,7 +123,8 @@ def progressive_alignment_crosslevel(tree: Tree, database: SequenceDB,
                     if not done[g] and ra[g] < cursor]
         t0 = time.time()
         pairs = [flat[g] for g in frontier]
-        schedule.update_node(pairs, database)
+        with trace.span("schedule"):
+            schedule.update_node(pairs, database)
         fb: list = []
         aligner.align_pairs(pairs, database, option, param, kernel=kernel,
                             fallback_out=fb)
@@ -177,7 +180,8 @@ def msa_on_subtree(tree: Tree, database: SequenceDB, option: Options,
     print("============================", file=sys.stderr)
     mode = 2 if option.aln_mode == PLACE_WO_TREE else \
         (0 if database.current_task == 0 else 1)
-    levels = schedule.scheduling(tree.root, mode)
+    with trace.span("schedule"):
+        levels = schedule.scheduling(tree.root, mode)
     if option.print_detail:
         print(f"Scheduling in {(time.time() - t_prog0) * 1e6:.0f} us",
               file=sys.stderr)
@@ -189,7 +193,8 @@ def msa_on_subtree(tree: Tree, database: SequenceDB, option: Options,
         progressive_alignment(tree, database, option, levels, param,
                               kernel=kernel)
     if option.aln_mode == PLACE_WO_TREE:
-        helpers.merge_insertions(database, tree.root)
+        with trace.span("root_update"):
+            helpers.merge_insertions(database, tree.root)
 
     if database.current_task == 0:
         last = levels[-1][0][0]
@@ -204,7 +209,8 @@ def msa_on_subtree(tree: Tree, database: SequenceDB, option: Options,
 
     if (option.aln_mode in (DEFAULT_ALN, PLACE_W_TREE)
             and not database.fallback_nodes):
-        update_alignment_root(tree.root, database)
+        with trace.span("root_update"):
+            update_alignment_root(tree.root, database)
 
     prog_s = time.time() - t_prog0
     if option.aln_mode == PLACE_WO_TREE:
@@ -224,6 +230,14 @@ def msa_on_subtree(tree: Tree, database: SequenceDB, option: Options,
         return
 
     # deferred/bad-profile realign pass (progressive.cpp:276-297)
+    with trace.span("deferred"):
+        _realign_deferred(tree, database, option, param, kernel)
+
+
+def _realign_deferred(tree: Tree, database: SequenceDB, option: Options,
+                      param: Params, kernel=None) -> None:
+    """The realign pass of the deferred profiles: each against the root,
+    one level each (progressive.cpp:276-297)."""
     t_bad0 = time.time()
     database.current_task = 1
     bad = list(database.fallback_nodes)
@@ -239,7 +253,8 @@ def msa_on_subtree(tree: Tree, database: SequenceDB, option: Options,
     database.fallback_nodes = []
     progressive_alignment(tree, database, option, levels, param, kernel=kernel)
     if option.aln_mode in (DEFAULT_ALN, PLACE_W_TREE):
-        update_alignment_root(tree.root, database)
+        with trace.span("root_update"):
+            update_alignment_root(tree.root, database)
     database.current_task = 0
     print(f"Realigned profiles/sequences in {int(time.time() - t_bad0)} s",
           file=sys.stderr)

@@ -12,6 +12,8 @@ import zlib
 from dataclasses import dataclass
 from typing import Iterator, List, Tuple
 
+from .. import trace
+
 
 @dataclass
 class FastaRecord:
@@ -77,6 +79,7 @@ def _gzip_member(payload: bytes) -> bytes:
 
 def write_fasta(path: str, records: List[Tuple[str, str]], compressed: bool = False,
                 append: bool = False) -> None:
+    written = 0
     if compressed:
         path = path + ".gz"
         mode = "ab" if append else "wb"
@@ -93,13 +96,14 @@ def write_fasta(path: str, records: List[Tuple[str, str]], compressed: bool = Fa
                             lambda r: _gzip_member(
                                 (">" + r[0] + "\n" + r[1] + "\n").encode()),
                             records, chunksize=8):
-                        f.write(member)
+                        written += f.write(member)
             else:
                 for name, seq in records:
-                    f.write(_gzip_member(
+                    written += f.write(_gzip_member(
                         (">" + name + "\n" + seq + "\n").encode()))
     else:
         mode = "a" if append else "w"
         with open(path, mode) as f:
             for name, seq in records:
-                f.write(">" + name + "\n" + seq + "\n")
+                written += f.write(">" + name + "\n" + seq + "\n")
+    trace.count("bytes_written", written)

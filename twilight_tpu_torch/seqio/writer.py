@@ -11,6 +11,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..config import DEFAULT_ALN, PLACE_WO_TREE, Options
 from ..core.seqdb import SequenceDB
 from .fasta import iter_fasta, write_fasta
@@ -149,6 +150,7 @@ def write_final_msa(database: SequenceDB, option: Options, aln_len: int
                     # each part as it is consumed halves peak disk on
                     # million-sequence runs (output ~= sum of parts)
                     os.remove(p)
+            trace.count("bytes_written", out.tell())
         if option.delete_temp:
             shutil.rmtree(option.temp_dir, ignore_errors=True)
         return

@@ -27,7 +27,6 @@ package's host code.
 from __future__ import annotations
 
 import contextlib
-import os
 import sys
 import time
 from typing import List, Optional, Sequence
@@ -35,6 +34,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from ..pipeline.aligner import GATE_ROUND_TRIPS
 from .nj import neighbor_joining
 
@@ -59,8 +59,9 @@ def _profile(line: str) -> None:
     """One of the JAX estimator's TWILIGHT_PROFILE lines (its
     estimate.py:148, 392, 401): the k-mer time, the distance matrix's
     path (the Gram product always on the host; the msa counts on the
-    card or the host) and the NJ/PartTree time."""
-    if os.environ.get("TWILIGHT_PROFILE"):
+    card or the host) and the NJ/PartTree time; printed under the
+    tracer's switch (`trace.on`)."""
+    if trace.on():
         print(f"  [profile] {line}", file=sys.stderr)
 
 
