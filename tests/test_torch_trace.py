@@ -28,7 +28,7 @@ MAIN = {"host_io_s": ("io.tree", "io.read", "io.write", "subtree.store"),
         "host_other_s": ("run", "level", "deferred", "subtree", "merge")}
 BATCHER = ("batcher.pack", "batcher.wait")
 COUNTS = ("levels_card", "levels_host", "pairs_card", "pairs_host",
-          "deferred", "bytes_written")
+          "deferred", "bytes_written", "pairs_prep_native", "pairs_prep_py")
 
 
 @pytest.fixture(scope="module")
@@ -85,6 +85,10 @@ def test_spans_split_the_run(route, sim16, tmp_path, monkeypatch):
     total = sum(st[f"span_ns.{k}"] for k in names)
     assert abs(total - runs[0].ns) <= 0.01 * runs[0].ns
     assert st["count.pairs_card"] == st["pairs"]
+    # every level's pairs prepped, all in the native level prep
+    assert st["count.pairs_prep_native"] == (st["count.pairs_card"]
+                                             + st["count.pairs_host"])
+    assert st["count.pairs_prep_py"] == 0
     if route == "card":
         assert st["count.levels_host"] == 0 and st["count.levels_card"] > 0
         assert st["dp_cells"] > 0 and st["span_ns.batcher.pack"] > 0

@@ -19,9 +19,10 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
 # NOTE: float semantics are load-bearing (bit-exact parity with the
 # reference build): keep IEEE ordering — no -ffast-math, explicit
-# -ffp-contract=off (no FMA fusing).
+# -ffp-contract=off (no FMA fusing). -pthread: hostops runs a level's
+# prep on std::thread workers.
 HOST_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared",
-              "-fPIC", "-std=c++17")
+              "-fPIC", "-std=c++17", "-pthread")
 _LOCK = threading.Lock()
 _LIBS = {}
 

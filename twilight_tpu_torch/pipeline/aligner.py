@@ -21,6 +21,7 @@ import numpy as np
 
 from .. import trace
 from ..config import MERGE_MSA, PLACE_WO_TREE, Options, Params
+from ..constants import profile_size
 from ..core.seqdb import SequenceDB
 from ..ops import talco_host, talco_np
 from . import helpers
@@ -53,7 +54,6 @@ def host_s_per_col(option: Options, param: Params) -> float:
     if _host_s_per_col is not None:
         return _host_s_per_col
     try:
-        from ..constants import profile_size
         n = 1024
         psize = profile_size(option.type)
         rng = np.random.default_rng(0)
@@ -324,26 +324,42 @@ def _align_level(pairs, database: SequenceDB, option: Options,
 
 def _prepare_level(pairs, metas, database: SequenceDB, option: Options,
                    param: Params) -> list:
-    """`_prepare_pair` of every pair, pooled across pairs."""
+    """`_prepare_pair` of every pair, in pair order.
+
+    The pairs that `helpers.native_prep_ok` accepts (a side with a cached
+    profile, or with members whose ids are all 0 or more, on a host
+    whose toolchain built hostops) go to `helpers.prepare_level_native`:
+    the whole level in two native calls, the pairs spread over
+    `host_pool_size(option)` C++ threads with the GIL released, largest
+    pair first. The others run `_prepare_pair` in Python, one after
+    another: without hostops, for a side with a negative member id, and
+    for the whole level under TW_DEBUG_DUMP_PAIR. Both give the same
+    bytes; the counters `pairs_prep_native` and `pairs_prep_py` say how
+    many pairs took each path."""
     task = database.current_task
     dump = os.environ.get("TW_DEBUG_DUMP_PAIR")
-    pool = host_pool_size(option)
-    if pool > 1 and len(pairs) > 3 and not dump:
-        # prep is read-only on shared state (profile caching touches only
-        # the pair's own nodes) and the native accumulate releases the
-        # GIL, so prep pools across pairs like the reference's TBB
-        # parallel_for over the per-pair pipeline (alignment-cpu.cpp:46)
-        with ThreadPoolExecutor(max_workers=pool) as ex:
-            return list(ex.map(
-                lambda pr: _prepare_pair(pr, database, option, param),
-                pairs))
-    prepared = [_prepare_pair(pair, database, option, param)
-                for pair in pairs]
+    psize = profile_size(option.type)
+    native = [] if dump else [i for i, pair in enumerate(pairs)
+                              if helpers.native_prep_ok(pair, psize)]
+    prepared = [None] * len(pairs)
+    if native:
+        preps = helpers.prepare_level_native(
+            [pairs[i] for i in native], database, option.type,
+            option.gappy_vertical, param, host_pool_size(option))
+        for i, prep in zip(native, preps):
+            prepared[i] = prep
+    for n_idx, pair in enumerate(pairs):
+        if prepared[n_idx] is None:
+            prepared[n_idx] = _prepare_pair(pair, database, option, param)
+    trace.count("pairs_prep_native", len(native))
+    trace.count("pairs_prep_py", len(pairs) - len(native))
+    if not dump:
+        return prepared
     for n_idx, pair in enumerate(pairs):
         ref, qry = pair
         prep = prepared[n_idx]
         ref_len, qry_len, ref_num, qry_num = metas[n_idx]
-        if dump and f"{ref.identifier}:{qry.identifier}" == dump:
+        if f"{ref.identifier}:{qry.identifier}" == dump:
             freq_ref, freq_qry, cons, gappy, lens, gap_op, gap_ex = prep
             np.savez(os.environ.get("TW_DEBUG_DUMP_FILE",
                                     _dump_path("pair.npz")),

@@ -9,6 +9,8 @@ operation order preserved where it affects output bytes.
 from __future__ import annotations
 
 import ctypes
+from itertools import chain
+from operator import attrgetter
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -192,6 +194,145 @@ def get_consensus(freq: np.ndarray, type_: str, length: int) -> np.ndarray:
     return lut[idx]
 
 
+class _PrepIn(ctypes.Structure):
+    """hostops.cpp's PrepIn: a level's sides and their members."""
+    _fields_ = [("npairs", ctypes.c_int64), ("psize", ctypes.c_int64),
+                *((n, ctypes.c_void_p) for n in (
+                    "lut", "letters", "len", "rows", "num", "weight", "freq",
+                    "mem_off", "mem_rows", "mem_w")),
+                ("gappy", ctypes.c_int32), ("threshold", ctypes.c_float),
+                ("gap_open", ctypes.c_float), ("gap_extend", ctypes.c_float),
+                ("scale", ctypes.c_float)]
+
+
+class _PrepOut(ctypes.Structure):
+    """hostops.cpp's PrepOut: where each side's outputs go."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "n_runs", "kept", "prof", "cons", "op", "ex", "runs", "store")]
+
+
+def native_prep_ok(pair, psize: int) -> bool:
+    """Whether prepare_level_native can prep `pair`: hostops has it, and
+    each side has a cached f32 profile of at least aln_len rows, or
+    members whose ids are all 0 or more."""
+    lib = _get_hostops()
+    if not (lib and hasattr(lib, "prep_level_fill")):
+        return False
+    for node in pair:
+        if _has_freq(node):
+            f = node.msa_freq
+            if not (isinstance(f, np.ndarray) and f.dtype == F32
+                    and f.ndim == 2 and f.shape[1] == psize
+                    and f.flags.c_contiguous and len(f) >= node.aln_len):
+                return False
+        elif node.seqs_included and min(node.seqs_included) < 0:
+            return False
+    return True
+
+
+def _data_pointers(arrays: list) -> np.ndarray:
+    """The data pointers of `arrays` (NumPy arrays) as uint64."""
+    return np.fromiter((a.ctypes.data for a in arrays), np.uint64,
+                       len(arrays))
+
+
+def _offsets(counts: np.ndarray) -> np.ndarray:
+    """Exclusive cumsum of counts, with the total last."""
+    off = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    return off
+
+
+def prepare_level_native(pairs, database: SequenceDB, type_: str,
+                         threshold: float, param, nthreads: int) -> list:
+    """calculate_profile, get_consensus, remove_gappy_columns and
+    calculate_psgp of every pair (each passing native_prep_ok), in two
+    native calls with the GIL released, on nthreads threads. Returns the
+    7-tuples of aligner._prepare_pair, byte for byte, and sets
+    node.msa_freq where calculate_profile stores it.
+
+    The first call finds each side's gappy runs from its gap column
+    alone, so that every output is allocated at its compacted size; the
+    second builds each full profile in its thread's scratch and writes
+    the outputs."""
+    lib = _get_hostops()
+    psize = profile_size(type_)
+    n = len(pairs)
+    nodes = [node for pair in pairs for node in pair]
+    cached = [_has_freq(node) for node in nodes]
+    length = np.fromiter((nd.aln_len for nd in nodes), np.int64, 2 * n)
+    num = np.fromiter((nd.aln_num for nd in nodes), np.int64, 2 * n)
+    weight = np.fromiter((nd.aln_weight for nd in nodes), F32, 2 * n)
+    rows = length.copy()
+    freq = np.zeros(2 * n, dtype=np.uint64)
+    for s in np.flatnonzero(cached).tolist():
+        rows[s] = len(nodes[s].msa_freq)
+        freq[s] = nodes[s].msa_freq.ctypes.data
+    # every member of every side in one pass: row addresses and weights
+    members = [() if c else nd.seqs_included
+               for nd, c in zip(nodes, cached)]
+    mem_off = _offsets(np.fromiter(map(len, members), np.int64, 2 * n))
+    infos = list(map(database.sequences.__getitem__,
+                     chain.from_iterable(members)))
+    alns = list(map(attrgetter("aln"), infos))
+    mem_rows = _data_pointers(alns)
+    mem_w = np.fromiter(map(attrgetter("weight"), infos), F32, len(infos))
+    lut = _lut8(letter_lut(type_))
+    letters = _CONSENSUS_NUC if type_ == "n" else _CONSENSUS_AA
+    gappy = threshold != 1.0
+    pin = _PrepIn(
+        n, psize, lut.ctypes.data, letters.ctypes.data, length.ctypes.data,
+        rows.ctypes.data, num.ctypes.data, weight.ctypes.data,
+        freq.ctypes.data, mem_off.ctypes.data, mem_rows.ctypes.data,
+        mem_w.ctypes.data, int(gappy), threshold, param.gap_open,
+        param.gap_extend, 0.5 if type_ == "n" else 1.0)
+
+    n_runs = np.zeros(2 * n, dtype=np.int64)
+    kept = length.copy()
+    if gappy:
+        lib.prep_level_scan(ctypes.byref(pin), n_runs.ctypes.data,
+                            kept.ctypes.data, nthreads)
+    # one array an output, as the Python path makes them (small ones come
+    # from the heap's free lists, not from fresh pages)
+    kl = kept.tolist()
+    profs = [np.empty((r, psize), dtype=F32)
+             for r in np.where(n_runs > 0, kept, rows).tolist()]
+    conss = [np.empty(ln, dtype=np.uint8) for ln in length.tolist()]
+    ops = [np.empty(k, dtype=F32) for k in kl]
+    exs = [np.empty(k, dtype=F32) for k in kl]
+    runs_off = _offsets(n_runs)
+    runs = np.empty((runs_off[-1], 2), dtype=np.int64)
+    store = np.zeros(2 * n, dtype=np.uint64)
+    stored = {}
+    for i, (ref, qry) in enumerate(pairs):
+        if (ref.aln_num >= CAL_PROFILE_TH or qry.aln_num >= CAL_PROFILE_TH
+                or cached[2 * i] or cached[2 * i + 1]):
+            for s in (2 * i, 2 * i + 1):
+                if not cached[s]:
+                    stored[s] = np.empty((length[s], psize), dtype=F32)
+                    store[s] = stored[s].ctypes.data
+    where = [n_runs, kept, *(_data_pointers(x)
+                             for x in (profs, conss, ops, exs)),
+             np.uint64(runs.ctypes.data)
+             + runs_off[:-1].astype(np.uint64) * np.uint64(16), store]
+    pout = _PrepOut(*(a.ctypes.data for a in where))
+    bad = lib.prep_level_fill(ctypes.byref(pin), ctypes.byref(pout),
+                              nthreads)
+    if bad:
+        raise RuntimeError(f"level prep: {bad} sides' gappy runs differ "
+                           "between the scan and the fill")
+    for s, arr in stored.items():
+        nodes[s].msa_freq = arr
+
+    every_run = list(zip(runs[:, 0].tolist(), runs[:, 1].tolist()))
+    ro = runs_off.tolist()
+    gappy_runs = [every_run[ro[s]:ro[s + 1]] for s in range(2 * n)]
+    return [(profs[r], profs[r + 1], (conss[r], conss[r + 1]),
+             (gappy_runs[r], gappy_runs[r + 1]), (kl[r], kl[r + 1]),
+             (ops[r], ops[r + 1]), (exs[r], exs[r + 1]))
+            for r in range(0, 2 * n, 2)]
+
+
 _hostops = None
 
 
@@ -221,6 +362,15 @@ def _get_hostops():
                     ctypes.POINTER(ctypes.c_void_p),
                     ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
                     ctypes.c_uint8]
+            if hasattr(lib, "prep_level_fill"):
+                lib.prep_level_scan.restype = None
+                lib.prep_level_scan.argtypes = [
+                    ctypes.POINTER(_PrepIn), ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int64]
+                lib.prep_level_fill.restype = ctypes.c_int64
+                lib.prep_level_fill.argtypes = [
+                    ctypes.POINTER(_PrepIn), ctypes.POINTER(_PrepOut),
+                    ctypes.c_int64]
         _hostops = lib if lib is not None else False
     return _hostops
 

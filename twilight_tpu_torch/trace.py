@@ -42,7 +42,8 @@ less what its children on its thread cover) summed over the run, and
 Counters: `levels_card`, `levels_host` (the level gate's decision),
 `pairs_card`, `pairs_host` (the pairs of those levels), `deferred`
 (pairs sent to the realign pass), `bytes_written` (alignment bytes the
-writer wrote).
+writer wrote), `pairs_prep_native`, `pairs_prep_py` (the pairs whose prep
+ran in hostops' level prep, and in Python).
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ SPANS = ("run", "run.setup", "io.tree", "io.read", "io.write",
          "batcher.call", "batcher.pack", "batcher.launch", "batcher.wait",
          "batcher.steal")
 COUNTS = ("levels_card", "levels_host", "pairs_card", "pairs_host",
-          "deferred", "bytes_written")
+          "deferred", "bytes_written", "pairs_prep_native", "pairs_prep_py")
 CLOCK = "twilight.clock"
 
 _current = None          # the tracer of the cli.run in flight
