@@ -31,11 +31,16 @@ on which device aligned a pair.
 
 The run's tracer (`trace`) times a call (`batcher.call`), each launch's
 packing (`batcher.pack`), issue (`batcher.launch`) and wait on its event
-(`batcher.wait`), and each stolen pair (`batcher.steal`); `stats` counts
-the DP cells of every tail the batcher reads (`dp_cells`). Where the
-tracer is on, the batcher prints from those spans to stderr, in the JAX
-batcher's `[dev]` lines' place (its device_kernel.py:538, 675, 695,
-768): one line a launch, when its round ends (route, padlen, the pairs'
+(`batcher.wait`), and each stolen pair (`batcher.steal`, and
+`batcher.steal_long` in its place for a long pair). On the long route it
+also counts the launches (`launches_long`, ladder relaunches included),
+the pairs in them (`pairs_long_launched`), the long pairs whose final
+result came from the card (`pairs_long_card`) and those the host stole
+(`pairs_long_host`). Spans and counters record only while the tracer is
+on; `stats` counts the DP cells of every tail the batcher reads
+(`dp_cells`) always. Where the tracer is on, the batcher prints from
+those spans to stderr, in the JAX batcher's `[dev]` lines' place (its
+device_kernel.py:538, 675, 695, 768): one line a launch, when its round ends (route, padlen, the pairs'
 widest ladder width, --pair-batch, pairs, and the seconds of packing,
 of issuing the launch, and of the host's wait for its result; a launch
 whose pairs were all stolen is never waited for), the round's blocked
@@ -410,6 +415,7 @@ class DeviceTalco:
         paths, tail = out_views(launch.host_out, b, launch.padlen)
         paths, tail = paths.numpy(), tail.numpy()
         self.stats["dp_cells"] += int(tail[:, 2].sum(dtype=np.int64))
+        on_device0 = self.stats["pairs_on_device"]
         for bi, i in enumerate(launch.chunk):
             with lock:
                 if i in claimed:
@@ -440,6 +446,9 @@ class DeviceTalco:
                     xdrop[i] = int(xdrop[i] * 2)
                     flen_param[i] = min(int(xdrop[i] * 4) << 1, min(lens))
                 pending.append(i)
+        if launch.padlen > SHORT_PADLEN:
+            trace.count("pairs_long_card",
+                        self.stats["pairs_on_device"] - on_device0)
 
     def __call__(self, prepared, metas, database, option, param,
                  on_final=None) -> List[Optional[np.ndarray]]:
@@ -534,6 +543,10 @@ class DeviceTalco:
                             self.stats["leaf_launches"] += int(leaf)
                             self.stats["long_launches"] += int(long_)
                             self.stats["wide_launches"] += int(wide)
+                            if long_:
+                                trace.count("launches_long")
+                                trace.count("pairs_long_launched",
+                                            len(chunk))
 
             # steal pairs from the tail onto the host kernel while the
             # launches run (TWILIGHT_NO_STEAL pins them to the device)
@@ -552,12 +565,16 @@ class DeviceTalco:
                 return None
 
             def _steal_one(i):
-                with trace.span("batcher.steal", mark=False) as steal:
+                long_ = max(prepared[i][4]) > SHORT_PADLEN
+                with trace.span("batcher.steal_long" if long_
+                                else "batcher.steal", mark=False) as steal:
                     results[i] = self._host_align(prepared[i], metas[i],
                                                   task)
                 with lock:
                     self.stats["host_stolen"] += 1
                     steal_ns[0] += steal.ns
+                if long_:
+                    trace.count("pairs_long_host")
                 note(i, results[i])
 
             def _stealer():

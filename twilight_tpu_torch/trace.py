@@ -37,13 +37,19 @@ less what its children on its thread cover) summed over the run, and
 | `level.post`, `root_update` | a pair's post phase; the root's member update | run |
 | `level.wait` | waiting for a pair's result from the batcher, and its join | run |
 | `deferred`, `subtree`, `merge` | the realign pass; a D&C subtree; the meta-tree merge | run |
-| `batcher.call`, `batcher.pack`, `batcher.launch`, `batcher.wait`, `batcher.steal` | `DeviceTalco.__call__`; packing a launch; issuing it; the wait on its event; a stolen pair | batcher, stealers |
+| `batcher.call`, `batcher.pack`, `batcher.launch`, `batcher.wait`, `batcher.steal` | `DeviceTalco.__call__`; packing a launch; issuing it; the wait on its event; a stolen short pair | batcher, stealers |
+| `batcher.steal_long` | a stolen long pair (a side above the 2048-column bucket): its host DP | batcher, stealers |
 
 Counters: `levels_card`, `levels_host` (the level gate's decision),
 `pairs_card`, `pairs_host` (the pairs of those levels), `deferred`
 (pairs sent to the realign pass), `bytes_written` (alignment bytes the
 writer wrote), `pairs_prep_native`, `pairs_prep_py` (the pairs whose prep
-ran in hostops' level prep, and in Python).
+ran in hostops' level prep, and in Python), and the batcher's long route:
+`launches_long` (long launches issued, ladder relaunches included),
+`pairs_long_launched` (the pairs in them), `pairs_long_card` (long pairs
+whose final result came from the card), `pairs_long_host` (long pairs the
+host stole). Like every span, each counter records only while the tracer
+is on.
 """
 from __future__ import annotations
 
@@ -59,9 +65,11 @@ SPANS = ("run", "run.setup", "io.tree", "io.read", "io.write",
          "level", "level.prep", "level.dp_host", "level.post",
          "root_update", "level.wait", "deferred", "subtree", "merge",
          "batcher.call", "batcher.pack", "batcher.launch", "batcher.wait",
-         "batcher.steal")
+         "batcher.steal", "batcher.steal_long")
 COUNTS = ("levels_card", "levels_host", "pairs_card", "pairs_host",
-          "deferred", "bytes_written", "pairs_prep_native", "pairs_prep_py")
+          "deferred", "bytes_written", "pairs_prep_native", "pairs_prep_py",
+          "launches_long", "pairs_long_launched", "pairs_long_card",
+          "pairs_long_host")
 CLOCK = "twilight.clock"
 
 _current = None          # the tracer of the cli.run in flight
