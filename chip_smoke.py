@@ -423,7 +423,9 @@ def phase_build():
     and its launch configuration, the same on every route (short, long and
     wide launches): it must fit the instance's limits and the 227 KB
     opt-in, keep the rows of offsets below talco_cuda.W_S in shared memory
-    (pair_scratch_bytes sizes the rest in scratch) and hold MAX_WINDOW."""
+    (pair_scratch_bytes sizes the rest in scratch) and hold MAX_WINDOW;
+    and the blocks of it the card holds at once, at least one an SM."""
+    import torch
     from twilight_tpu_torch.ops import talco_cuda
     from twilight_tpu_torch.ops.device_kernel import Params
     out = {}
@@ -446,6 +448,13 @@ def phase_build():
                   f"build/{name}: launch configuration {lib}")
             attr["launch"] = {k: lib[k] for k in (
                 "consumers", "producers", "smem_bytes", "ring_cells")}
+            # the batcher's long launches fill this side by side
+            attr["resident_blocks"] = talco_cuda.resident_blocks(
+                p, leaf, "cuda", msize)
+            check(attr["resident_blocks"]
+                  >= torch.cuda.get_device_properties(0)
+                  .multi_processor_count,
+                  f"build/{name}: fewer resident blocks than SMs")
             out[name] = attr
             print(f"[build] {name}: " + json.dumps(attr), flush=True)
     return out

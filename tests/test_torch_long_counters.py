@@ -108,11 +108,13 @@ def test_short_pairs_leave_long_counters_at_zero(monkeypatch):
 
 
 def test_tracer_off_records_nothing(monkeypatch):
+    """The held-back pair is in the second launch: the host may steal it
+    (the first launch is the first wave)."""
     monkeypatch.delenv("TWILIGHT_NO_STEAL", raising=False)
-    _hold_back(monkeypatch, 0)
-    res, batcher, tr = _run([(2100, 2090)], 7, on=False)
+    _hold_back(monkeypatch, 1)
+    res, batcher, tr = _run([(2100, 2090), (2060, 2049)], 7, on=False)
     st = batcher.stats
-    assert res[0] is not None and st["host_stolen"] == 1
-    assert st["long_launches"] == 1
+    assert all(r is not None for r in res) and st["host_stolen"] == 1
+    assert st["long_launches"] == 2
     assert not tr.on and tr.records == [] and tr.counts == {}
     assert not [k for k in st if k.startswith(("span_ns.", "count."))]

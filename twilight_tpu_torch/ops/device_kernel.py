@@ -19,6 +19,21 @@ errors 3/4, and 1/2 at task 0, give None (the host ladder decides). A pair
 whose ladder width would exceed `MAX_WINDOW` gives None as well, as in the
 JAX batcher, and is counted and announced. A failed launch raises.
 
+Long launches (padlen above 2048) run side by side. Each pair is one
+block, and a long pair's time is the latency of its tens of thousands of
+dependent anti-diagonals, so a launch of a few dozen pairs leaves most
+SMs idle. A round's long launches on a device therefore go out on a pool
+of streams, as many as it takes for its launches to fill the device's
+resident capacity (its SMs times the blocks of the kernel instance one
+SM holds; `talco_cuda.resident_blocks`), and launch k takes stream k
+modulo the pool (`wave_plan`). The launches that, in issue order, fit
+that capacity together are the round's first wave: they start at once,
+so the host never steals their pairs (a host thread takes longer for a
+long pair than the card does). It steals from the tail of the later long
+launches, and of every short launch, as before. The plain version on a
+CPU device runs one launch at a time: its first wave is its first long
+launch.
+
 Several devices (the counterpart of the JAX package's pairs mesh,
 `twilight_tpu/parallel/sharding.py` and its device_kernel.py:541-557):
 each selected device has its own copy of the substitution matrix, its own
@@ -34,7 +49,9 @@ packing (`batcher.pack`), issue (`batcher.launch`) and wait on its event
 (`batcher.wait`), and each stolen pair (`batcher.steal`, and
 `batcher.steal_long` in its place for a long pair). On the long route it
 also counts the launches (`launches_long`, ladder relaunches included),
-the pairs in them (`pairs_long_launched`), the long pairs whose final
+those issued while an earlier long launch of the round on another of the
+device's streams had not finished (`launches_long_beside`), the pairs in
+them (`pairs_long_launched`), the long pairs whose final
 result came from the card (`pairs_long_card`) and those the host stole
 (`pairs_long_host`). Spans and counters record only while the tracer is
 on; `stats` counts the DP cells of every tail the batcher reads
@@ -54,6 +71,7 @@ from __future__ import annotations
 import os
 import sys
 import threading
+from fractions import Fraction
 from typing import List, Optional
 
 import numpy as np
@@ -124,6 +142,25 @@ def split_launches(idxs, prepared, flen_param, rows: int, esz: int,
     if chunk:
         out.append((chunk, padlen))
     return out
+
+
+def wave_plan(blocks, capacity):
+    """The first wave and the streams of one device's long launches in a
+    round, in issue order. Launch k holds `blocks[k]` pairs, one block
+    each, of a kernel instance of which the device holds `capacity[k]`
+    blocks at once (None: the device runs one launch at a time). Launch k
+    is in the first wave when it fits the capacity together with the
+    launches before it. The pool holds enough streams for the launch that
+    takes the most of the capacity to fill it alongside launches of its
+    own size, and no more than there are launches; launch k takes stream
+    k modulo the pool. Returns ([in the first wave], [stream index])."""
+    shares = [(b, b if c is None else c) for b, c in zip(blocks, capacity)]
+    first, filled = [], Fraction(0)
+    for b, c in shares:
+        filled += Fraction(b, c)
+        first.append(filled <= 1)
+    pool = max(1, min([len(shares)] + [-(-c // b) for b, c in shares]))
+    return first, [k % pool for k in range(len(shares))]
 
 
 def select_devices(n_avail: int, option: Options) -> List[int]:
@@ -269,14 +306,16 @@ def out_views(buf: torch.Tensor, batch: int, padlen: int):
 
 class _Launch:
     __slots__ = ("chunk", "staging", "host_out", "event", "padlen",
-                 "pack_s", "launch_s", "wait_s")
+                 "stream", "pack_s", "launch_s", "wait_s")
 
-    def __init__(self, chunk, staging, host_out, event, padlen):
+    def __init__(self, chunk, staging, host_out, event, padlen,
+                 stream: int = 0):
         self.chunk = chunk
         self.staging = staging      # held until the H2D copy has completed
         self.host_out = host_out
         self.event = event
         self.padlen = padlen
+        self.stream = stream        # its index in the device's pool
         self.pack_s = self.launch_s = 0.0
         self.wait_s = None          # never waited for: all stolen
 
@@ -321,6 +360,10 @@ class DeviceTalco:
             build.load()     # a failed build raises before any level runs
             self.streams = [torch.cuda.Stream(d) if d.type == "cuda"
                             else None for d in self.devices]
+        # each device's pool of streams for long launches side by side,
+        # its first stream the device's own; grown as rounds need
+        self.pools = [[s] for s in self.streams]
+        self._resident = {}     # (device index, leaf) -> capacity in blocks
         # launches counts kernel launches on the card; launches_by_device
         # counts the launches of each device in `devices` (of the plain
         # version on a CPU device); leaf_launches, long_launches and
@@ -338,19 +381,42 @@ class DeviceTalco:
 
     def close(self) -> None:
         """Wait for every stream: no launch outlives the run."""
-        for stream in self.streams:
-            if stream is not None:
-                stream.synchronize()
+        for pool in self.pools:
+            for stream in pool:
+                if stream is not None:
+                    stream.synchronize()
+
+    def capacity(self, q: int, leaf: bool) -> Optional[int]:
+        """Blocks of the route's kernel instance that device `q` holds at
+        once, or None on a CPU device, which runs one launch at a time."""
+        device = self.devices[q]
+        if device.type != "cuda":
+            return None
+        key = (q, leaf)
+        if key not in self._resident:
+            self._resident[key] = talco_cuda.resident_blocks(
+                self.p, leaf, device, msize=self.matrices[q].shape[0])
+        return self._resident[key]
+
+    def _stream(self, q: int, s: int):
+        """Stream `s` of device `q`'s pool, made at first use."""
+        pool = self.pools[q]
+        while len(pool) <= s:
+            device = self.devices[q]
+            pool.append(torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)
+        return pool[s]
 
     def summary(self) -> str:
         return (f"{_TAG} {', '.join(str(d) for d in self.devices)}: "
                 + " ".join(f"{k}={v}" for k, v in self.stats.items()))
 
     def _launch(self, chunk, padlen, prepared, metas, task, leaf,
-                flen_param, xdrop, q: int = 0) -> _Launch:
-        """One launch of `chunk` on device `q` of `devices`."""
+                flen_param, xdrop, s: int = 0, q: int = 0) -> _Launch:
+        """One launch of `chunk` on stream `s` of the pool of device `q`
+        of `devices`."""
         device, matrix, stream = (self.devices[q], self.matrices[q],
-                                  self.streams[q])
+                                  self._stream(q, s))
         cuda = device.type == "cuda"
         self.stats["launches_by_device"][q] += 1
         with trace.span("batcher.pack", mark=False) as pack:
@@ -389,7 +455,7 @@ class DeviceTalco:
                     ev = torch.cuda.Event()
                     ev.record(stream)
                 self.stats["launches"] += 1
-        launch = _Launch(chunk, st, host, ev, padlen)
+        launch = _Launch(chunk, st, host, ev, padlen, s)
         launch.pack_s = pack.ns / 1e9
         launch.launch_s = issue.ns / 1e9
         return launch
@@ -512,8 +578,7 @@ class DeviceTalco:
                 for i in too_wide:
                     results[i] = None
                     note(i, None)
-            launches: List[_Launch] = []
-            routes = []         # (route, widest ladder width) a launch
+            plan = []           # (chunk, padlen, long, wide, leaf, device)
             n_dev = len(self.devices)
             for (long_, wide, leaf), idxs in buckets.items():
                 # size-sorted, so a launch's blocks carry similar work
@@ -528,32 +593,45 @@ class DeviceTalco:
                         staging_budget=STAGING_BUDGET * n_dev,
                         scratch_budget=SCRATCH_BUDGET * n_dev):
                     for q in range(n_dev):
-                        for chunk, padlen in split_launches(
+                        plan.extend(
+                            (chunk, padlen, long_, wide, leaf, q)
+                            for chunk, padlen in split_launches(
                                 group[q::n_dev], prepared, flen_param, rows,
-                                esz, self.batch, marker=self.marker):
-                            routes.append((
-                                ("long" if long_ else "short")
-                                + (" leaf" if leaf else " freq")
-                                + (" wide" if wide else "")
-                                + (f" q{q}" if n_dev > 1 else ""),
-                                max(flen_param[i] for i in chunk)))
-                            launches.append(self._launch(
-                                chunk, padlen, prepared, metas, task, leaf,
-                                flen_param, xdrop, q))
-                            self.stats["leaf_launches"] += int(leaf)
-                            self.stats["long_launches"] += int(long_)
-                            self.stats["wide_launches"] += int(wide)
-                            if long_:
-                                trace.count("launches_long")
-                                trace.count("pairs_long_launched",
-                                            len(chunk))
+                                esz, self.batch, marker=self.marker))
+            first, streams = self._waves(plan)
+
+            launches: List[_Launch] = []
+            routes = []         # (route, widest ladder width) a launch
+            long_issued = [[] for _ in range(n_dev)]
+            for (chunk, padlen, long_, wide, leaf, q), s in zip(plan,
+                                                                streams):
+                routes.append((("long" if long_ else "short")
+                               + (" leaf" if leaf else " freq")
+                               + (" wide" if wide else "")
+                               + (f" q{q}" if n_dev > 1 else ""),
+                               max(flen_param[i] for i in chunk)))
+                ln = self._launch(chunk, padlen, prepared, metas, task, leaf,
+                                  flen_param, xdrop, s, q)
+                launches.append(ln)
+                self.stats["leaf_launches"] += int(leaf)
+                self.stats["long_launches"] += int(long_)
+                self.stats["wide_launches"] += int(wide)
+                if long_:
+                    trace.count("launches_long")
+                    trace.count("pairs_long_launched", len(chunk))
+                    if any(o.stream != s and not o.ready()
+                           for o in long_issued[q]):
+                        trace.count("launches_long_beside")
+                    long_issued[q].append(ln)
 
             # steal pairs from the tail onto the host kernel while the
-            # launches run (TWILIGHT_NO_STEAL pins them to the device)
+            # launches run (TWILIGHT_NO_STEAL pins them to the device),
+            # but none of the first wave's
             lock = threading.Lock()
             claimed: set = set()
             steal_stack = ([] if no_steal else
-                           [i for ln in launches for i in ln.chunk])
+                           [i for ln, f in zip(launches, first) if not f
+                            for i in ln.chunk])
 
             def _claim():
                 with lock:
@@ -619,6 +697,20 @@ class DeviceTalco:
             f"host-stolen={self.stats['host_stolen'] - stolen0} "
             f"steal_dp={steal_ns[0] / 1e9:.3f}s launches="
             f"{sum(self.stats['launches_by_device']) - launches0}")
+
+    def _waves(self, plan):
+        """([in the first wave], [stream index]) of a round's launches
+        (`plan`): `wave_plan` over each device's long launches; a short
+        launch is in no wave and takes the device's first stream."""
+        first, streams = [False] * len(plan), [0] * len(plan)
+        for q in range(len(self.devices)):
+            ks = [k for k, (_, _, long_, _, _, dq) in enumerate(plan)
+                  if long_ and dq == q]
+            f, s = wave_plan([len(plan[k][0]) for k in ks],
+                             [self.capacity(q, plan[k][4]) for k in ks])
+            for k, fk, sk in zip(ks, f, s):
+                first[k], streams[k] = fk, sk
+        return first, streams
 
     def _print_round(self, launches, routes) -> None:
         """The TWILIGHT_PROFILE lines of one round's launches (module

@@ -251,6 +251,31 @@ def kernel_attributes(p: int, leaf: bool) -> dict:
     return dict(zip(keys, (int(v) for v in out)))
 
 
+def resident_blocks(p: int, leaf: bool, device, msize: int = 32) -> int:
+    """Blocks of the kernel instance <p, leaf> that CUDA `device` holds
+    at once: its SMs times the blocks one SM keeps resident, by the CUDA
+    occupancy calculation over the instance's threads, registers and
+    shared memory (`kernel_attributes`, `launch_config`) and the
+    device's limits. A launch of more blocks runs in several waves."""
+    props = torch.cuda.get_device_properties(device)
+    with torch.cuda.device(device):
+        attr = kernel_attributes(p, leaf)
+    cfg = launch_config(leaf, msize=msize)
+    warp = props.warp_size
+    warps = -(-(cfg["consumers"] + cfg["producers"]) // warp)
+    by_threads = props.max_threads_per_multi_processor // (warps * warp)
+    # registers go to a warp in units of 256
+    regs_warp = -(-attr["registers"] * warp // 256) * 256
+    by_regs = props.regs_per_multiprocessor // (regs_warp * warps)
+    # an SM reserves for each block what it holds beyond the most that
+    # one block may opt in to
+    reserved = (props.shared_memory_per_multiprocessor
+                - props.shared_memory_per_block_optin)
+    smem = attr["static_shared_bytes"] + cfg["smem_bytes"] + reserved
+    by_smem = props.shared_memory_per_multiprocessor // smem
+    return props.multi_processor_count * min(by_threads, by_regs, by_smem)
+
+
 # ----------------------------------------------------------------------
 # plain PyTorch version: talco_np.tile / align_freq transcribed to torch
 # tensors, one pair at a time, each anti-diagonal vectorised

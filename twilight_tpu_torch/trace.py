@@ -48,7 +48,9 @@ ran in hostops' level prep, and in Python), and the batcher's long route:
 `launches_long` (long launches issued, ladder relaunches included),
 `pairs_long_launched` (the pairs in them), `pairs_long_card` (long pairs
 whose final result came from the card), `pairs_long_host` (long pairs the
-host stole). Like every span, each counter records only while the tracer
+host stole), `launches_long_beside` (long launches issued while an earlier
+long launch of the round, on another of the device's streams, had not
+finished). Like every span, each counter records only while the tracer
 is on.
 """
 from __future__ import annotations
@@ -69,7 +71,7 @@ SPANS = ("run", "run.setup", "io.tree", "io.read", "io.write",
 COUNTS = ("levels_card", "levels_host", "pairs_card", "pairs_host",
           "deferred", "bytes_written", "pairs_prep_native", "pairs_prep_py",
           "launches_long", "pairs_long_launched", "pairs_long_card",
-          "pairs_long_host")
+          "pairs_long_host", "launches_long_beside")
 CLOCK = "twilight.clock"
 
 _current = None          # the tracer of the cli.run in flight
