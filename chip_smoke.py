@@ -2544,6 +2544,7 @@ def main(argv=None):
     # with the probes' barrier-exchange build (the probes phase)
     build.prebuild((), exchange_flags("barrier"))
     build.load()
+    build.load(build.PROBE)
     print(f"[build] nvcc {build.build_seconds or 0.0:.2f} s (one nvcc a "
           f"source and flag set, in parallel), load {time.time() - t0:.2f} "
           f"s, flags {' '.join(build.NVCC_FLAGS)}", flush=True)

@@ -1,7 +1,8 @@
 """The port's kernel builder (twilight_tpu_torch/ops/build.py) with a
-stand-in nvcc: one compile a source, libraries named by their flags,
-`variant` switching the wrappers to a library built with extra flags, and
-a failed build raising with the compiler's output.
+stand-in nvcc: one compile a source, only the source asked for on
+`load`, libraries named by their flags, `variant` switching the wrappers
+to a library built with extra flags, and a failed build raising with the
+compiler's output.
 
 The stand-in compiles, with the host C compiler, a library that exports
 the kernels' C interface; its `talco_xdrop_config` reports whether
@@ -78,6 +79,8 @@ def compiles(log):
 def test_load_builds_each_source_once(standin):
     lib = build.load()
     assert build.load() is lib
+    probe = build.load(build.PROBE)
+    assert probe is not lib and build.load(build.PROBE) is probe
     assert compiles(standin) == sorted(f"{s} " for s in build.SOURCES)
     for name in build.SOURCES:
         assert os.path.exists(build.library_path(name))
@@ -89,6 +92,16 @@ def test_load_builds_each_source_once(standin):
         talco_cuda.launch_config(False, marker=0)
 
 
+def test_talco_library_compiles_only_its_source(standin):
+    """The batcher's library: making it compiles talco_xdrop.cu alone,
+    and its namespace holds the TALCO kernel's functions only."""
+    lib = build.load()
+    assert compiles(standin) == [f"{build.TALCO} "]
+    assert not os.path.exists(build.library_path(build.PROBE))
+    assert hasattr(lib, "talco_xdrop_launch")
+    assert not hasattr(lib, "probe_loop_launch")
+
+
 def test_variant_uses_its_own_library(standin):
     plain = build.load()
     with build.variant("-DTALCO_PROFILE") as profiled:
@@ -98,11 +111,12 @@ def test_variant_uses_its_own_library(standin):
     assert talco_cuda.launch_config(False)["ring_cells"] == 0
     assert build.library_path(build.SOURCES[0]) != build.library_path(
         build.SOURCES[0], ("-DTALCO_PROFILE",))
-    # one compile a source and variant, none again on a second entry
+    # the plain TALCO library, every source of the variant once, and
+    # none again on a second entry
     with build.variant("-DTALCO_PROFILE"):
         pass
     assert compiles(standin) == sorted(
-        [f"{s} " for s in build.SOURCES]
+        [f"{build.TALCO} "]
         + [f"{s} -DTALCO_PROFILE" for s in build.SOURCES])
 
 

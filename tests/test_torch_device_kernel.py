@@ -1,7 +1,8 @@
 """The port's batcher (twilight_tpu_torch/ops/device_kernel.py) against the
 JAX package's DeviceTalco: identical packed arrays, the leaf predicate,
-the padlen buckets, the retry ladder on the kernel's output, the device
-selection rules, and a CPU-tensor batcher run equal to the host kernel."""
+the long route's bound and a launch's padlen, the retry ladder on the
+kernel's output, the device selection rules, and a CPU-tensor batcher run
+equal to the host kernel."""
 import numpy as np
 import pytest
 import torch
@@ -126,8 +127,12 @@ def test_leaf_predicate_and_padlen_buckets():
     assert not dk.is_leaf_pair(leaf_prep, (10, 12, 2, 1), 0, 4096, 4096)
     assert not dk.is_leaf_pair(leaf_prep, (10, 12, 1, 1), 0, 1000, 4096)
     assert not dk.is_leaf_pair(gappy, (10, 12, 1, 1), 0, 4096, 4096)
-    assert [dk.padlen_bucket(m) for m in (1, 2048, 2049, 32768, 40000)] \
-        == [2048, 2048, 32768, 32768, 65536]
+    # the long route starts past the 2048-column bucket, on either side
+    assert not dk.is_long((2048, 2048)) and not dk.is_long((1, 2048))
+    assert dk.is_long((2049, 10)) and dk.is_long((10, 2049))
+    assert [dk.launch_padlen(m) for m in (1, 2048, 2049, 2304, 2305,
+                                          32768, 40000)] \
+        == [2048, 2048, 2304, 2304, 2560, 32768, 40192]
 
 
 def _fake_launch(batcher, chunk, errs, lens):

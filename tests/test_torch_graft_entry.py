@@ -87,7 +87,7 @@ def test_dryrun_without_enough_cards_raises_naming_the_count(monkeypatch):
 def check_dryrun(n, monkeypatch):
     """dryrun_multichip over n CPU devices, the oracle on two worker
     processes: every route, every device, nothing stolen, the environment
-    restored."""
+    untouched."""
     monkeypatch.delenv("TWILIGHT_NO_STEAL", raising=False)
     with ProcessPoolExecutor(2, mp_context=get_context("spawn")) as pool:
         res = graft_entry.dryrun_multichip(n, ["cpu"] * n,

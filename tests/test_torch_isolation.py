@@ -74,6 +74,49 @@ def test_ast_scan_catches_an_offence(tmp_path):
     assert len(got) == 4, got
 
 
+def _pipeline_imports(path, package):
+    """The modules under twilight_tpu_torch.pipeline that the file at
+    `path`, a module of `package`, imports, relative imports resolved."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            parts = package.split(".")
+            base = (parts[:len(parts) - node.level + 1] if node.level
+                    else [])
+            mod = ".".join(base + ([node.module] if node.module else []))
+            names += [mod] + [f"{mod}.{a.name}" for a in node.names]
+    return sorted({n for n in names
+                   if n.split(".")[:2] == ["twilight_tpu_torch",
+                                           "pipeline"]})
+
+
+def test_ops_never_imports_the_pipeline(tmp_path):
+    """The layers' arrows point one way: cli -> pipeline -> ops. No module
+    under twilight_tpu_torch/ops/ imports twilight_tpu_torch.pipeline,
+    neither relatively nor by its full name (and the scan sees both)."""
+    ops = os.path.join(REPO, "twilight_tpu_torch", "ops")
+    files = sorted(os.path.join(ops, n) for n in os.listdir(ops)
+                   if n.endswith(".py"))
+    assert os.path.join(ops, "device_kernel.py") in files
+    found = {os.path.basename(f): _pipeline_imports(
+        f, "twilight_tpu_torch.ops") for f in files}
+    assert {f: n for f, n in found.items() if n} == {}
+    bad = tmp_path / "bad.py"
+    bad.write_text("from ..pipeline.aligner import align_pairs\n"
+                   "from .. import pipeline\n"
+                   "def f():\n"
+                   "    import twilight_tpu_torch.pipeline.helpers\n")
+    assert _pipeline_imports(str(bad), "twilight_tpu_torch.ops") == [
+        "twilight_tpu_torch.pipeline",
+        "twilight_tpu_torch.pipeline.aligner",
+        "twilight_tpu_torch.pipeline.aligner.align_pairs",
+        "twilight_tpu_torch.pipeline.helpers"]
+
+
 # Runs in a fresh interpreter: a meta-path finder refuses jax and the JAX
 # package (and records every attempt), then the port's command line (prot_16
 # on the native, numpy and cpu backends, and a divide-and-conquer run), its

@@ -58,7 +58,7 @@ def _pair(rng, p, rl, ql, param, leaf=False, related=True, num=1):
 
 
 def _host_ladder(prep, meta, task, param, flen0):
-    """The reference retry ladder (aligner._run_talco_with_retries) on the
+    """The reference retry ladder (ladder.run_talco_with_retries) on the
     native host kernel, from a starting width flen0."""
     fr, fq, _, _, lens, go, ge = prep
     zero_gc = task in (1, 2) or meta[2] > 10000 or meta[3] > 10000

@@ -1,5 +1,5 @@
 """The batcher's first wave on the long route (twilight_tpu_torch/ops/
-device_kernel.py, `wave_plan`, `DeviceTalco._waves`): a round's long
+device_kernel.py, `wave_plan`, `DeviceTalco._plan`): a round's long
 launches that fit the device's resident capacity together go out side by
 side, each on a stream of the device's pool, and the host steals none of
 their pairs; it steals from the tail of the later long launches, and from

@@ -212,7 +212,7 @@ class _Calls(list):
 @pytest.fixture
 def launches(monkeypatch):
     """The (variant id, cluster) of each probe_loop_launch call, through
-    a stand-in library."""
+    a stand-in library that only a load of the probes' source gets."""
     calls = _Calls()
 
     def probe_loop_launch(variant, cluster, trips, walk_floor, offset, out,
@@ -223,7 +223,8 @@ def launches(monkeypatch):
         return calls.rc
 
     lib = types.SimpleNamespace(probe_loop_launch=probe_loop_launch)
-    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(build, "load",
+                        lambda source: lib if source == build.PROBE else None)
     monkeypatch.setattr(build, "error_string", lambda rc: "stand-in error")
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(

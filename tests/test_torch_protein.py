@@ -42,8 +42,7 @@ from twilight_tpu.workflow import run_iterative as tpu_run_iterative
 from twilight_tpu_torch import cli
 from twilight_tpu_torch.config import Params, write_matrix_file
 from twilight_tpu_torch.ops import device_kernel as dk
-from twilight_tpu_torch.ops import talco_cuda
-from twilight_tpu_torch.pipeline import aligner
+from twilight_tpu_torch.ops import ladder, talco_cuda
 from twilight_tpu_torch.tools import simulate
 from twilight_tpu_torch.trees import estimate
 from twilight_tpu_torch.workflow import iterative, run_iterative
@@ -129,15 +128,15 @@ def test_protein_root_merge_above_10000_matches_jax_cli(tmp_path,
                                                         monkeypatch):
     argv = _big_protein_clade(str(tmp_path))
     seen = []
-    real = aligner._run_talco_with_retries
+    real = ladder.run_talco_with_retries
 
     def hook(*args):
         # (freq_ref, freq_qry, gap_op, gap_ex, num, lens, param,
-        # gap_char_zero, task, option)
+        # zero_gap_char, task, option)
         seen.append((args[4], args[7], args[0].shape[1]))
         return real(*args)
 
-    monkeypatch.setattr(aligner, "_run_talco_with_retries", hook)
+    monkeypatch.setattr(ladder, "run_talco_with_retries", hook)
     out = str(tmp_path / "port.aln")
     assert cli.main(argv + ["-o", out]) == 0
     big = [s for s in seen if max(s[0]) > 10000]

@@ -30,8 +30,7 @@ from twilight_tpu.ops import talco_np as jax_talco_np
 from twilight_tpu_torch import cli
 from twilight_tpu_torch.config import Params
 from twilight_tpu_torch.ops import device_kernel as dk
-from twilight_tpu_torch.ops import talco_cuda, talco_np
-from twilight_tpu_torch.pipeline import aligner
+from twilight_tpu_torch.ops import ladder, talco_cuda, talco_np
 from twilight_tpu_torch.tools import simulate
 from twilight_tpu_torch.tools import talco_inputs as ti
 
@@ -260,15 +259,15 @@ def _big_clade_set(d):
 def test_root_merge_above_10000_matches_jax_cli(tmp_path, monkeypatch):
     argv = _big_clade_set(str(tmp_path))
     seen = []
-    real = aligner._run_talco_with_retries
+    real = ladder.run_talco_with_retries
 
     def hook(*args):
         # (freq_ref, freq_qry, gap_op, gap_ex, num, lens, param,
-        # gap_char_zero, task, option)
+        # zero_gap_char, task, option)
         seen.append((args[4], args[7], args[8]))
         return real(*args)
 
-    monkeypatch.setattr(aligner, "_run_talco_with_retries", hook)
+    monkeypatch.setattr(ladder, "run_talco_with_retries", hook)
     out = str(tmp_path / "port.aln")
     assert cli.main(argv + ["-o", out]) == 0
     big = [s for s in seen if max(s[0]) > 10000]

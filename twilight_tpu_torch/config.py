@@ -7,6 +7,7 @@ as plain dataclasses for the GPU port.
 from __future__ import annotations
 
 import gzip
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -62,6 +63,13 @@ class Options:
     # cuda/gpu-info.cu:14-61); None = all local devices
     device_num: "int | None" = None
     device_index: "list | None" = None
+
+
+def host_pool_size(option: Options) -> int:
+    """Host threads for the DP, level prep and stealing: -C, or every
+    core."""
+    return max(1, option.cpu_num if option.cpu_num > 0
+               else (os.cpu_count() or 1))
 
 
 def detect_mode(has_tree: bool, has_seq: bool, has_files: bool, has_aln: bool) -> int:
@@ -257,29 +265,16 @@ def dump_params(param: "Params", type_: str, blosum: int,
 
 @dataclass
 class TalcoParams:
-    """Kernel-side parameters (reference TALCO-XDrop.cpp:36-53).
+    """The kernel's starting state (reference TALCO-XDrop.cpp:36-53), where
+    the retry ladder (`ops/ladder.py`) starts every pair.
 
     Note the reference kernel derives its own xdrop from gap_extend and
-    ignores Params.xdrop; fLen/marker are fixed powers of two.
+    ignores Params.xdrop; fLen is a fixed power of two. The scores and the
+    gap_char rule come from Params and `ops/ladder.py`.
     """
-    scoring_matrix: np.ndarray
-    matrix_size: int
-    gap_open: float
-    gap_extend: float
-    gap_char_score: float
-    gap_boundary: float
     xdrop: int
     flen: int = 1 << 12
-    marker: int = 1 << 10
 
     @staticmethod
     def from_params(p: Params) -> "TalcoParams":
-        return TalcoParams(
-            scoring_matrix=p.scoring_matrix.astype(np.float32),
-            matrix_size=p.matrix_size,
-            gap_open=p.gap_open,
-            gap_extend=p.gap_extend,
-            gap_char_score=p.gap_extend,
-            gap_boundary=p.gap_boundary,
-            xdrop=int(1000 * -1 * p.gap_extend),
-        )
+        return TalcoParams(xdrop=int(1000 * -1 * p.gap_extend))

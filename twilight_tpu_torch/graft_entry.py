@@ -17,14 +17,13 @@ runs both on the card (the dry run over every visible GPU).
 """
 from __future__ import annotations
 
-import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .config import Options, Params
-from .ops import device_kernel, talco_cuda, talco_np
+from .ops import device_kernel, ladder, talco_cuda
 
 PADLEN, FLEN, BATCH = 256, 256, 4      # the example batch (entry)
 XDROP = 5000
@@ -169,33 +168,13 @@ def _dryrun_pairs(n, base_flen, seed=0):
 
 
 def oracle_ladder(prep, meta, task, flen0):
-    """The reference retry ladder (pipeline/aligner._run_talco_with_retries)
-    on the NumPy oracle from width flen0, nt scoring: the path, or None
-    where the batcher gives None (an error at task 0, or errors 3/4)."""
-    param = Params.make("n")
-    fr, fq, _, _, lens, go, ge = prep
-    zero_gc = task in (1, 2) or meta[2] > 10000 or meta[3] > 10000
-    tp = talco_np.TalcoRunParams(
-        param.scoring_matrix, param.gap_open, param.gap_extend,
-        0.0 if zero_gc else param.gap_extend,
-        int(1000 * -1 * param.gap_extend), flen=flen0)
-    while True:
-        aln, err = talco_np.align_freq(tp, fr[:lens[0]], fq[:lens[1]],
-                                       go, ge, (float(meta[2]),
-                                                float(meta[3])))
-        if err == 0:
-            return np.asarray(aln, np.int8)
-        if task == 0 or err not in (1, 2):
-            return None
-        if err == 2:
-            tp.flen = min(int(tp.flen * 1.2) << 1, min(lens))
-        else:
-            tp.xdrop = int(tp.xdrop * 2)
-            tp.flen = min(int(tp.xdrop * 4) << 1, min(lens))
-
-
-def _oracle_job(job):
-    return oracle_ladder(*job)
+    """The reference retry ladder (`ops/ladder.py`) on the NumPy oracle
+    from width flen0, nt scoring: the path, or None where the batcher
+    gives None at task 0 (an error)."""
+    path, needs_fallback = ladder.align_prepared(
+        prep, meta, task, Params.make("n"), Options(device_backend="numpy"),
+        flen=flen0)
+    return None if needs_fallback else np.asarray(path, np.int8)
 
 
 def _cuda_devices(n):
@@ -210,9 +189,9 @@ def _cuda_devices(n):
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None,
                      base_flen: Optional[int] = None, pool=None) -> dict:
     """Runs the production batcher (DeviceTalco) over n devices with host
-    stealing off (TWILIGHT_NO_STEAL=1, restored afterwards) through every
-    route, and holds every pair byte for byte to the oracle's ladder from
-    the same starting width. `devices` defaults to the first n distinct
+    stealing off (its `no_steal`) through every route, and holds every
+    pair byte for byte to the oracle's ladder from the same starting
+    width. `devices` defaults to the first n distinct
     CUDA devices (it raises naming the count when there are fewer); a
     list may repeat a device or name CPU devices (the plain version).
     `base_flen` defaults to the batcher's starting ladder width (4096).
@@ -229,69 +208,62 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None,
     backend = "cuda" if all(d.type == "cuda" for d in devs) else "cpu"
     opt = Options(device_backend=backend, pair_batch=8)
     param = Params.make("n")
-    prev = os.environ.get("TWILIGHT_NO_STEAL")
-    os.environ["TWILIGHT_NO_STEAL"] = "1"
+    dt = device_kernel.DeviceTalco(opt, param, devs)
+    dt.no_steal = True
     try:
-        dt = device_kernel.DeviceTalco(opt, param, devs)
-        try:
-            if base_flen is not None:
-                dt.base_flen = int(base_flen)
-            levels = _dryrun_pairs(n_devices, dt.base_flen)
-            jobs = [(prep, meta, task, dt.base_flen)
-                    for task, level in enumerate(levels)
-                    for prep, meta, _ in level]
-            futures = None
-            if pool is not None:
-                # the ladder pair's reference is the slowest: first
-                order = sorted(range(len(jobs)),
-                               key=lambda j: (jobs[j][2] == 0,
-                                              -jobs[j][1][0] * jobs[j][1][1]))
-                submitted = {j: pool.submit(_oracle_job, jobs[j])
-                             for j in order}
-                futures = [submitted[j] for j in range(len(jobs))]
-            results = []
-            for task, level in enumerate(levels):
-                prepared = [prep for prep, _, _ in level]
-                metas = [meta for _, meta, _ in level]
-                results += dt(prepared, metas, _DB(task), opt, param)
-            routes = [route for level in levels for _, _, route in level]
-            for j, job in enumerate(jobs):
-                gold = (futures[j].result() if futures is not None
-                        else _oracle_job(job))
-                got = results[j]
-                if gold is None or got is None \
-                        or not np.array_equal(got, gold):
-                    raise AssertionError(
-                        f"dryrun_multichip: pair {j} ({routes[j]}, "
-                        f"{job[0][4][0]} x {job[0][4][1]} columns) "
-                        "differs from the oracle: device "
-                        f"{None if got is None else len(got)} steps, "
-                        f"oracle {None if gold is None else len(gold)}")
-            st = dt.stats
-            if st["host_stolen"]:
-                raise AssertionError(f"dryrun_multichip: the host stole "
-                                     f"{st['host_stolen']} pairs despite "
-                                     "TWILIGHT_NO_STEAL")
-            if not all(st["launches_by_device"]):
+        if base_flen is not None:
+            dt.base_flen = int(base_flen)
+        levels = _dryrun_pairs(n_devices, dt.base_flen)
+        jobs = [(prep, meta, task, dt.base_flen)
+                for task, level in enumerate(levels)
+                for prep, meta, _ in level]
+        futures = None
+        if pool is not None:
+            # the ladder pair's reference is the slowest: first
+            order = sorted(range(len(jobs)),
+                           key=lambda j: (jobs[j][2] == 0,
+                                          -jobs[j][1][0] * jobs[j][1][1]))
+            submitted = {j: pool.submit(oracle_ladder, *jobs[j])
+                         for j in order}
+            futures = [submitted[j] for j in range(len(jobs))]
+        results = []
+        for task, level in enumerate(levels):
+            prepared = [prep for prep, _, _ in level]
+            metas = [meta for _, meta, _ in level]
+            results += dt(prepared, metas, _DB(task), opt, param)
+        routes = [route for level in levels for _, _, route in level]
+        for j, job in enumerate(jobs):
+            gold = (futures[j].result() if futures is not None
+                    else oracle_ladder(*job))
+            got = results[j]
+            if gold is None or got is None \
+                    or not np.array_equal(got, gold):
                 raise AssertionError(
-                    "dryrun_multichip: a device made no launch: "
-                    f"launches_by_device {st['launches_by_device']}")
-            for k in ("leaf_launches", "long_launches", "wide_launches",
-                      "ladder_relaunches"):
-                if st[k] < 1:
-                    raise AssertionError(f"dryrun_multichip: {k} is 0: "
-                                         "a route was never taken")
-            by_route = {r: routes.count(r) for r in dict.fromkeys(routes)}
-            return {"devices": [str(d) for d in devs],
-                    "base_flen": dt.base_flen, "pairs": by_route,
-                    "stats": dict(st), "summary": dt.summary()}
-        finally:
-            dt.close()
+                    f"dryrun_multichip: pair {j} ({routes[j]}, "
+                    f"{job[0][4][0]} x {job[0][4][1]} columns) "
+                    "differs from the oracle: device "
+                    f"{None if got is None else len(got)} steps, "
+                    f"oracle {None if gold is None else len(gold)}")
+        st = dt.stats
+        if st["host_stolen"]:
+            raise AssertionError(f"dryrun_multichip: the host stole "
+                                 f"{st['host_stolen']} pairs despite "
+                                 "no_steal")
+        if not all(st["launches_by_device"]):
+            raise AssertionError(
+                "dryrun_multichip: a device made no launch: "
+                f"launches_by_device {st['launches_by_device']}")
+        for k in ("leaf_launches", "long_launches", "wide_launches",
+                  "ladder_relaunches"):
+            if st[k] < 1:
+                raise AssertionError(f"dryrun_multichip: {k} is 0: "
+                                     "a route was never taken")
+        by_route = {r: routes.count(r) for r in dict.fromkeys(routes)}
+        return {"devices": [str(d) for d in devs],
+                "base_flen": dt.base_flen, "pairs": by_route,
+                "stats": dict(st), "summary": dt.summary()}
     finally:
-        if prev is None:
-            os.environ.pop("TWILIGHT_NO_STEAL", None)
-        else:
-            os.environ["TWILIGHT_NO_STEAL"] = prev
+        dt.close()
 
 
 def main() -> int:

@@ -1,15 +1,17 @@
 """Build and load the CUDA kernels of this package.
 
-At first use, `nvcc` compiles each source of `csrc/` into a shared library
-with a plain C interface, in `csrc/build/`, named by a hash of the source
-and the flags, and the libraries are loaded with ctypes (the same route as
-`native/__init__.py` takes for the host kernels). The nvcc calls, one per
-source with the same flags, start together and run in parallel. A failed
-build raises with nvcc's error output. Nothing builds at import.
+At its first use, `nvcc` compiles a source of `csrc/` into a shared
+library with a plain C interface, in `csrc/build/`, named by a hash of the
+source and the flags, and the library is loaded with ctypes (the same
+route as `native/__init__.py` takes for the host kernels). `load()` builds
+and loads the TALCO kernel's library alone, which is all the batcher and
+`talco_cuda` use; `load(PROBE)` the loop-cost probes'. A failed build
+raises with nvcc's error output. Nothing builds at import.
 `variant(*flags)` makes the wrappers use libraries built with extra nvcc
 flags (the kernel's -DTALCO_PROFILE build) within a `with` block;
 `prebuild(*flag_sets)` compiles the libraries of several flag sets in one
-parallel round, ahead of their use.
+parallel round, ahead of their use. Both build every source, one nvcc a
+source and flag set, started together.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(SRC_DIR, "build")
 SOURCES = ("talco_xdrop.cu", "probe_loop_costs.cu")
+TALCO, PROBE = SOURCES
 
 # Float semantics are part of the result (bit-identical alignments): no
 # fused multiply-add contraction, IEEE division and square root, no flush
@@ -37,34 +40,35 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs = {}               # extra nvcc flags -> Kernels
+_libs = {}               # (source, extra nvcc flags) -> Kernels
 _extra = ()              # the extra flags of the libraries load() returns
 build_seconds = None     # wall time of this process's last compiles, if any
 
 
 class Kernels:
-    """The functions of every source's library, as one namespace."""
+    """The functions of one source's library, as a namespace."""
 
-    def __init__(self, libs):
+    def __init__(self, source: str, lib):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        talco, probe = libs["talco_xdrop.cu"], libs["probe_loop_costs.cu"]
 
-        def bind(lib, name, restype, argtypes):
+        def bind(name, restype, argtypes):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = restype, argtypes
             setattr(self, name, fn)
 
-        bind(talco, "talco_xdrop_launch", ci,
-             [ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, ctypes.c_longlong,
-              vp, vp, ci, ci, ci, vp])
-        bind(talco, "talco_xdrop_config", ci,
-             [ci, ci, ci, ctypes.POINTER(ctypes.c_longlong)])
-        bind(talco, "talco_xdrop_attributes", ci,
-             [ci, ci, ctypes.POINTER(ctypes.c_int)])
-        bind(talco, "talco_xdrop_error_string", ctypes.c_char_p, [ci])
-        bind(probe, "probe_loop_launch", ci, [ci, ci, ci, ci, ci, vp, vp])
-        bind(probe, "probe_loop_attributes", ci,
-             [ci, ci, ctypes.POINTER(ctypes.c_int)])
+        if source == TALCO:
+            bind("talco_xdrop_launch", ci,
+                 [ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, ctypes.c_longlong,
+                  vp, vp, ci, ci, ci, vp])
+            bind("talco_xdrop_config", ci,
+                 [ci, ci, ci, ctypes.POINTER(ctypes.c_longlong)])
+            bind("talco_xdrop_attributes", ci,
+                 [ci, ci, ctypes.POINTER(ctypes.c_int)])
+            bind("talco_xdrop_error_string", ctypes.c_char_p, [ci])
+        else:
+            bind("probe_loop_launch", ci, [ci, ci, ci, ci, ci, vp, vp])
+            bind("probe_loop_attributes", ci,
+                 [ci, ci, ctypes.POINTER(ctypes.c_int)])
 
 
 def nvcc_path() -> str:
@@ -92,12 +96,13 @@ def library_path(name: str, extra=()) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def _compile(flag_sets) -> None:
-    """Builds every missing library of the flag sets (extra flags each),
-    one nvcc a library, all started together; call with _lock held."""
+def _compile(flag_sets, sources=SOURCES) -> None:
+    """Builds every missing library of the sources and flag sets (extra
+    flags each), one nvcc a library, all started together; call with
+    _lock held."""
     global build_seconds
     todo = [(name, extra, library_path(name, extra))
-            for extra in flag_sets for name in SOURCES]
+            for extra in flag_sets for name in sources]
     todo = [job for job in todo if not os.path.exists(job[2])]
     if not todo:
         return
@@ -131,27 +136,29 @@ def prebuild(*flag_sets) -> None:
         _compile([tuple(f) for f in flag_sets])
 
 
-def load() -> Kernels:
-    """The kernels' libraries (of the `variant` in force), built on first
+def load(source: str = TALCO) -> Kernels:
+    """The library of `source` (of the `variant` in force), built on first
     use."""
     extra = _extra
+    key = (source, extra)
     with _lock:
-        if extra in _libs:
-            return _libs[extra]
-        _compile([extra])
-        _libs[extra] = Kernels({name: ctypes.CDLL(library_path(name, extra))
-                                for name in SOURCES})
-        return _libs[extra]
+        if key not in _libs:
+            _compile([extra], [source])
+            _libs[key] = Kernels(source, ctypes.CDLL(
+                library_path(source, extra)))
+        return _libs[key]
 
 
 @contextlib.contextmanager
 def variant(*flags):
     """Within the block, `load()`, and so every wrapper's launch, uses the
-    libraries built with these nvcc flags added to NVCC_FLAGS (built on
-    first use, kept beside the plain ones). Yields them."""
+    libraries built with these nvcc flags added to NVCC_FLAGS (every
+    source's, built on entry where missing and kept beside the plain
+    ones). Yields the TALCO kernel's."""
     global _extra
     prev, _extra = _extra, tuple(flags)
     try:
+        prebuild(_extra)
         yield load()
     finally:
         _extra = prev

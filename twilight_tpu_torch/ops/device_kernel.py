@@ -2,11 +2,13 @@
 `twilight_tpu/ops/device_kernel.py` (`DeviceTalco`, `make_device_kernel`,
 `select_devices`).
 
-Per level it sorts the pairs by size and cuts them into launches by route:
-short launches (every side within the 2048-column bucket, padlen 2048),
-long launches (the route of the TPU's K4: padlen is the launch's longest
-side rounded up to 256) and wide launches (pairs whose retry-ladder width
-grew past 4096, the work of the TPU's K5). Each launch holds at most
+A call runs in rounds, each one planned (`_plan`), issued (`_issue`) and
+drained (`_drain`). Per round it sorts the pairs by size and cuts them
+into launches by route: short launches (every side within the
+2048-column bucket, padlen 2048), long launches (the route of the TPU's
+K4: padlen is the launch's longest side rounded up to 256) and wide
+launches (pairs whose retry-ladder width grew past 4096, the work of the
+TPU's K5). Each launch holds at most
 --pair-batch pairs and stays within a byte budget for its pinned staging
 and its device scratch. It packs each launch's pairs straight into one
 pinned host buffer (the g8 compact layout, `talco_cuda` module doc), and
@@ -14,7 +16,8 @@ issues one H2D copy, the kernel and one D2H copy on its own CUDA stream,
 with an event marking the result ready. While launches are in flight the
 host steals pairs from the tail onto the native kernel (both produce the
 same bits), and each result is handed to `on_final` as soon as it is
-final. Errors 1/2 at task != 0 re-launch with the reference retry ladder;
+final. Errors 1/2 at task != 0 re-launch with the reference retry ladder
+(`ladder.step`; gap_char and the starting state come from `ladder` too);
 errors 3/4, and 1/2 at task 0, give None (the host ladder decides). A pair
 whose ladder width would exceed `MAX_WINDOW` gives None as well, as in the
 JAX batcher, and is counted and announced. A failed launch raises.
@@ -72,16 +75,15 @@ import os
 import sys
 import threading
 from fractions import Fraction
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import trace
-from ..config import Options, Params
+from ..config import Options, Params, host_pool_size
 from ..constants import letter_lut
-from ..pipeline.aligner import _run_talco_with_retries, host_pool_size
-from . import talco_cuda
+from . import ladder, talco_cuda
 from .talco_cuda import MARKER, MAX_WINDOW, TAIL, p8_of
 
 MAX_ROUNDS = 30
@@ -92,17 +94,10 @@ SCRATCH_BUDGET = 2 << 30     # device scratch bytes of one launch
 _TAG = "[twilight-tpu-torch]"
 
 
-def padlen_bucket(m: int) -> int:
-    """Padded length of a pair whose longer side has m columns
-    (twilight_tpu device_kernel.py:456-462)."""
-    if m <= 2048:
-        return 2048
-    if m <= 32768:
-        return 32768
-    p = 1
-    while p < m:
-        p <<= 1
-    return p
+def is_long(lens) -> bool:
+    """Whether a pair of side lengths `lens` takes the long route: a side
+    above the 2048-column bucket."""
+    return max(lens) > SHORT_PADLEN
 
 
 def launch_padlen(m: int) -> int:
@@ -251,10 +246,11 @@ def pack_batch(chunk, prepared, metas, task: int, padlen: int, p: int,
         ref[bi, p8 - 1, padlen - rl:] = gap_ex[0][::-1]
         qry[bi, p8 - 2, :ql] = gap_op[1]
         qry[bi, p8 - 1, :ql] = gap_ex[1]
-        zero_gc = task in (1, 2) or rnum > 10000 or qnum > 10000
         ints[:, bi] = (rl, ql, flen_param[i], xdrop[i])
         floats[:, bi] = (np.float32(rnum), np.float32(qnum),
-                         np.float32(0.0) if zero_gc else ge, go, ge)
+                         np.float32(0.0)
+                         if ladder.gap_char_zero(task, rnum, qnum) else ge,
+                         go, ge)
     st.offs.numpy()[:] = talco_cuda.scratch_offsets(ints[0], ints[1],
                                                     ints[2], marker)
     return st
@@ -327,6 +323,63 @@ class _Launch:
             self.event.synchronize()   # releases the GIL
 
 
+class _Planned(NamedTuple):
+    """One launch of a round's plan."""
+    chunk: list          # its pairs, size-sorted
+    padlen: int
+    long: bool           # `is_long` pairs
+    wide: bool           # ladder width above the batcher's base_flen
+    leaf: bool           # letter codes, not profiles
+    device: int          # index in DeviceTalco.devices
+    width: int           # the pairs' widest ladder width when planned
+    first: bool = False  # in the device's first wave: never stolen
+    stream: int = 0      # index in the device's pool of streams
+
+    def route(self, n_dev: int) -> str:
+        """Its route as the `[dev]` lines name it, over n_dev devices."""
+        return (("long" if self.long else "short")
+                + (" leaf" if self.leaf else " freq")
+                + (" wide" if self.wide else "")
+                + (f" q{self.device}" if n_dev > 1 else ""))
+
+
+class _Call:
+    """One call's pairs, their ladder state and results, and the seconds
+    the host spent stealing (in ns, over its threads)."""
+    __slots__ = ("prepared", "metas", "task", "note", "results", "flen",
+                 "xdrop", "steal_ns")
+
+    def __init__(self, prepared, metas, task, note, flen, xdrop):
+        n = len(prepared)
+        self.prepared, self.metas, self.task = prepared, metas, task
+        self.note = note
+        self.results: List[Optional[np.ndarray]] = [None] * n
+        self.flen = [flen] * n       # the reference ladder's state
+        self.xdrop = [xdrop] * n
+        self.steal_ns = 0
+
+
+class _Claims:
+    """Which of a round's pairs the card or the host has taken, and the
+    stack the host steals from."""
+
+    def __init__(self, stack):
+        self.lock = threading.Lock()
+        self.claimed: set = set()
+        self.stack = stack
+
+    def take(self) -> Optional[int]:
+        """The pair on top of the stack that nobody has taken, now the
+        host's, or None."""
+        with self.lock:
+            while self.stack:
+                i = self.stack.pop()
+                if i not in self.claimed:
+                    self.claimed.add(i)
+                    return i
+        return None
+
+
 class DeviceTalco:
     """The kernel contract of pipeline/aligner.py:302-378 over the CUDA
     kernel (or, on a CPU device, its plain PyTorch version), on one device
@@ -348,10 +401,13 @@ class DeviceTalco:
                 raise ValueError(f"unsupported device {d}")
         self.device = self.devices[0]
         self.p = 6 if option.type == "n" else 22
-        self.base_flen = 1 << 12     # starting ladder width; wider is "wide"
+        # starting ladder width; wider is "wide"
+        self.base_flen = ladder.start(param)[0]
         self.max_window = MAX_WINDOW
         self.marker = MARKER
         self.batch = max(1, option.pair_batch)
+        # TWILIGHT_NO_STEAL pins every pair to the device
+        self.no_steal = bool(os.environ.get("TWILIGHT_NO_STEAL"))
         self.matrices = [talco_cuda.device_params(param, d)[0]
                          for d in self.devices]
         self.streams = [None] * len(self.devices)
@@ -461,15 +517,10 @@ class DeviceTalco:
         return launch
 
     def _host_align(self, prep, meta, task):
-        """Reference retry ladder on the native host kernel (the same bits
-        as the device path)."""
-        freq_ref, freq_qry, _, _, lens, gap_op, gap_ex = prep
-        rnum, qnum = meta[2], meta[3]
-        gap_char_zero = task in (1, 2) or rnum > 10000 or qnum > 10000
-        path, needs_fallback = _run_talco_with_retries(
-            freq_ref[:lens[0]], freq_qry[:lens[1]], gap_op, gap_ex,
-            (float(rnum), float(qnum)), lens, self.param, gap_char_zero,
-            task, self.option)
+        """The reference retry ladder on the native host kernel (the same
+        bits as the device path)."""
+        path, needs_fallback = ladder.align_prepared(prep, meta, task,
+                                                     self.param, self.option)
         return path if not needs_fallback else None
 
     def _collect(self, launch, results, prepared, task, lock, claimed,
@@ -481,7 +532,6 @@ class DeviceTalco:
         paths, tail = out_views(launch.host_out, b, launch.padlen)
         paths, tail = paths.numpy(), tail.numpy()
         self.stats["dp_cells"] += int(tail[:, 2].sum(dtype=np.int64))
-        on_device0 = self.stats["pairs_on_device"]
         for bi, i in enumerate(launch.chunk):
             with lock:
                 if i in claimed:
@@ -491,6 +541,8 @@ class DeviceTalco:
             if e == 0:
                 results[i] = paths[bi, :ln].copy()
                 self.stats["pairs_on_device"] += 1
+                if is_long(prepared[i][4]):
+                    trace.count("pairs_long_card")
                 note(i, results[i])
             elif e == talco_cuda.ERR_LAYOUT:
                 raise RuntimeError("talco_xdrop: pair lengths or scratch "
@@ -504,17 +556,9 @@ class DeviceTalco:
                 results[i] = None
                 note(i, None)
             else:
-                lens = prepared[i][4]
-                if e == 2:
-                    flen_param[i] = min(int(flen_param[i] * 1.2) << 1,
-                                        min(lens))
-                elif e == 1:
-                    xdrop[i] = int(xdrop[i] * 2)
-                    flen_param[i] = min(int(xdrop[i] * 4) << 1, min(lens))
+                flen_param[i], xdrop[i] = ladder.step(
+                    e, flen_param[i], xdrop[i], prepared[i][4])
                 pending.append(i)
-        if launch.padlen > SHORT_PADLEN:
-            trace.count("pairs_long_card",
-                        self.stats["pairs_on_device"] - on_device0)
 
     def __call__(self, prepared, metas, database, option, param,
                  on_final=None) -> List[Optional[np.ndarray]]:
@@ -526,191 +570,185 @@ class DeviceTalco:
         return results
 
     def _align(self, prepared, metas, database, param, on_final):
-        """The body of a call: (results, the start of the call's `[dev]`
-        line, or None where the tracer is off)."""
-        note = on_final or (lambda i, p: None)
-        task = database.current_task
-        n = len(prepared)
-        results: List[Optional[np.ndarray]] = [None] * n
-        flen_param = [self.base_flen] * n       # reference ladder state
-        xdrop = [int(1000 * -1 * param.gap_extend)] * n
-
+        """The body of a call, a round at a time: plan, issue, drain.
+        Returns (results, the start of the call's `[dev]` line, or None
+        where the tracer is off)."""
+        c = _Call(prepared, metas, database.current_task,
+                  on_final or (lambda i, p: None), self.base_flen,
+                  ladder.start(param)[1])
         pending: List[int] = []
-        self.stats["pairs"] += n
+        self.stats["pairs"] += len(prepared)
         for i, prep in enumerate(prepared):
             lens = prep[4]
             if lens[0] <= 0 or lens[1] <= 0:
                 self.stats["zero_length"] += 1
-                note(i, None)   # zero-length side: post handles it
+                c.note(i, None)   # zero-length side: post handles it
             else:
                 pending.append(i)
-        no_steal = bool(os.environ.get("TWILIGHT_NO_STEAL"))
         profile = trace.on()
         on_device0 = self.stats["pairs_on_device"]
         stolen0 = self.stats["host_stolen"]
         launches0 = sum(self.stats["launches_by_device"])
-        steal_ns = [0]      # the host's steal time, over its threads
 
         rounds = 0
         while pending and rounds < MAX_ROUNDS:
             rounds += 1
-            buckets = {}
-            too_wide = []
-            for i in pending:
-                lens = prepared[i][4]
-                if min(flen_param[i], min(lens)) > self.max_window:
-                    # the JAX batcher's cap (its device_kernel.py:464-468)
-                    too_wide.append(i)
-                    continue
-                # after the first round, every pending pair is a ladder step
-                self.stats["ladder_relaunches"] += rounds > 1
-                long_ = padlen_bucket(max(lens)) > SHORT_PADLEN
-                wide = flen_param[i] > self.base_flen
-                leaf = is_leaf_pair(prepared[i], metas[i], task,
-                                    flen_param[i], self.base_flen)
-                buckets.setdefault((long_, wide, leaf), []).append(i)
-            pending = []
-            if too_wide:
-                self.stats["host_wide"] += len(too_wide)
-                print(f"{_TAG} {len(too_wide)} pairs need a ladder width "
-                      f"above {self.max_window} columns: the host ladder "
-                      "aligns them", file=sys.stderr)
-                for i in too_wide:
-                    results[i] = None
-                    note(i, None)
-            plan = []           # (chunk, padlen, long, wide, leaf, device)
-            n_dev = len(self.devices)
-            for (long_, wide, leaf), idxs in buckets.items():
-                # size-sorted, so a launch's blocks carry similar work
-                idxs.sort(key=lambda i: -(prepared[i][4][0]
-                                          + prepared[i][4][1]))
-                rows, esz = (1, 1) if leaf else (p8_of(self.p), 4)
-                # a group holds every device's share; striped, so that
-                # each device's launch holds pairs of similar sizes
-                for group, _ in split_launches(
-                        idxs, prepared, flen_param, rows, esz,
-                        self.batch * n_dev, marker=self.marker,
-                        staging_budget=STAGING_BUDGET * n_dev,
-                        scratch_budget=SCRATCH_BUDGET * n_dev):
-                    for q in range(n_dev):
-                        plan.extend(
-                            (chunk, padlen, long_, wide, leaf, q)
-                            for chunk, padlen in split_launches(
-                                group[q::n_dev], prepared, flen_param, rows,
-                                esz, self.batch, marker=self.marker))
-            first, streams = self._waves(plan)
-
-            launches: List[_Launch] = []
-            routes = []         # (route, widest ladder width) a launch
-            long_issued = [[] for _ in range(n_dev)]
-            for (chunk, padlen, long_, wide, leaf, q), s in zip(plan,
-                                                                streams):
-                routes.append((("long" if long_ else "short")
-                               + (" leaf" if leaf else " freq")
-                               + (" wide" if wide else "")
-                               + (f" q{q}" if n_dev > 1 else ""),
-                               max(flen_param[i] for i in chunk)))
-                ln = self._launch(chunk, padlen, prepared, metas, task, leaf,
-                                  flen_param, xdrop, s, q)
-                launches.append(ln)
-                self.stats["leaf_launches"] += int(leaf)
-                self.stats["long_launches"] += int(long_)
-                self.stats["wide_launches"] += int(wide)
-                if long_:
-                    trace.count("launches_long")
-                    trace.count("pairs_long_launched", len(chunk))
-                    if any(o.stream != s and not o.ready()
-                           for o in long_issued[q]):
-                        trace.count("launches_long_beside")
-                    long_issued[q].append(ln)
-
-            # steal pairs from the tail onto the host kernel while the
-            # launches run (TWILIGHT_NO_STEAL pins them to the device),
-            # but none of the first wave's
-            lock = threading.Lock()
-            claimed: set = set()
-            steal_stack = ([] if no_steal else
-                           [i for ln, f in zip(launches, first) if not f
-                            for i in ln.chunk])
-
-            def _claim():
-                with lock:
-                    while steal_stack:
-                        cand = steal_stack.pop()
-                        if cand not in claimed:
-                            claimed.add(cand)
-                            return cand
-                return None
-
-            def _steal_one(i):
-                long_ = max(prepared[i][4]) > SHORT_PADLEN
-                with trace.span("batcher.steal_long" if long_
-                                else "batcher.steal", mark=False) as steal:
-                    results[i] = self._host_align(prepared[i], metas[i],
-                                                  task)
-                with lock:
-                    self.stats["host_stolen"] += 1
-                    steal_ns[0] += steal.ns
-                if long_:
-                    trace.count("pairs_long_host")
-                note(i, results[i])
-
-            def _stealer():
-                while (i := _claim()) is not None:
-                    _steal_one(i)
-
-            stealers = [threading.Thread(target=_stealer) for _ in range(
-                min(host_pool_size(self.option) - 1, len(steal_stack)))]
-            for th in stealers:
-                th.start()
-            try:
-                waiting = list(launches)
-                while waiting:
-                    ready = next((ln for ln in waiting if ln.ready()), None)
-                    if ready is None:
-                        i = _claim()
-                        if i is not None:
-                            _steal_one(i)
-                            continue
-                        if all(p in claimed for ln in waiting
-                               for p in ln.chunk):
-                            break    # every pair left was stolen
-                        ready = waiting[0]
-                    waiting.remove(ready)
-                    self._collect(ready, results, prepared, task, lock,
-                                  claimed, pending, flen_param, xdrop, note)
-                while (i := _claim()) is not None:
-                    _steal_one(i)
-            finally:
-                for th in stealers:
-                    th.join()
+            plan = self._plan(c, self._routes(c, pending, rounds))
+            launches = self._issue(c, plan)
+            pending = self._drain(c, plan, launches)
             if profile:
-                self._print_round(launches, routes)
+                self._print_round(launches, [(p.route(len(self.devices)),
+                                              p.width) for p in plan])
         for i in pending:
-            results[i] = None
-            note(i, None)
+            c.note(i, None)
         if not profile:
-            return results, None
-        return results, (
-            f"    [dev] call done: pairs={n} "
+            return c.results, None
+        return c.results, (
+            f"    [dev] call done: pairs={len(prepared)} "
             f"device={self.stats['pairs_on_device'] - on_device0} "
             f"host-stolen={self.stats['host_stolen'] - stolen0} "
-            f"steal_dp={steal_ns[0] / 1e9:.3f}s launches="
+            f"steal_dp={c.steal_ns / 1e9:.3f}s launches="
             f"{sum(self.stats['launches_by_device']) - launches0}")
 
-    def _waves(self, plan):
-        """([in the first wave], [stream index]) of a round's launches
-        (`plan`): `wave_plan` over each device's long launches; a short
-        launch is in no wave and takes the device's first stream."""
-        first, streams = [False] * len(plan), [0] * len(plan)
-        for q in range(len(self.devices)):
-            ks = [k for k, (_, _, long_, _, _, dq) in enumerate(plan)
-                  if long_ and dq == q]
-            f, s = wave_plan([len(plan[k][0]) for k in ks],
-                             [self.capacity(q, plan[k][4]) for k in ks])
-            for k, fk, sk in zip(ks, f, s):
-                first[k], streams[k] = fk, sk
-        return first, streams
+    def _routes(self, c: _Call, pending, rounds: int):
+        """A round's pairs by route, {(long, wide, leaf): [pair]} in
+        `pending` order. A pair whose ladder width would pass max_window
+        gives None: the host ladder aligns it."""
+        routes, too_wide = {}, []
+        for i in pending:
+            lens = c.prepared[i][4]
+            if min(c.flen[i], min(lens)) > self.max_window:
+                # the JAX batcher's cap (its device_kernel.py:464-468)
+                too_wide.append(i)
+                continue
+            # after the first round, every pending pair is a ladder step
+            self.stats["ladder_relaunches"] += rounds > 1
+            leaf = is_leaf_pair(c.prepared[i], c.metas[i], c.task,
+                                c.flen[i], self.base_flen)
+            routes.setdefault((is_long(lens), c.flen[i] > self.base_flen,
+                               leaf), []).append(i)
+        if too_wide:
+            self.stats["host_wide"] += len(too_wide)
+            print(f"{_TAG} {len(too_wide)} pairs need a ladder width "
+                  f"above {self.max_window} columns: the host ladder "
+                  "aligns them", file=sys.stderr)
+            for i in too_wide:
+                c.note(i, None)
+        return routes
+
+    def _plan(self, c: _Call, routes) -> List[_Planned]:
+        """A round's launches in issue order. Each route's pairs, sorted
+        by size so that a launch's blocks carry similar work, are cut into
+        groups of every device's share, and a group is striped over the
+        devices (device d takes group[d::n]), so that each device's launch
+        holds pairs of similar sizes. Then `wave_plan` gives each device's
+        long launches their first-wave flag and stream; a short launch is
+        in no wave and takes the device's first stream."""
+        n_dev = len(self.devices)
+        plan = []
+        for (long_, wide, leaf), idxs in routes.items():
+            idxs.sort(key=lambda i: -(c.prepared[i][4][0]
+                                      + c.prepared[i][4][1]))
+            rows, esz = (1, 1) if leaf else (p8_of(self.p), 4)
+            for group, _ in split_launches(
+                    idxs, c.prepared, c.flen, rows, esz, self.batch * n_dev,
+                    marker=self.marker,
+                    staging_budget=STAGING_BUDGET * n_dev,
+                    scratch_budget=SCRATCH_BUDGET * n_dev):
+                for q in range(n_dev):
+                    plan.extend(
+                        _Planned(chunk, padlen, long_, wide, leaf, q,
+                                 max(c.flen[i] for i in chunk))
+                        for chunk, padlen in split_launches(
+                            group[q::n_dev], c.prepared, c.flen, rows, esz,
+                            self.batch, marker=self.marker))
+        for q in range(n_dev):
+            ks = [k for k, p in enumerate(plan) if p.long and p.device == q]
+            first, streams = wave_plan(
+                [len(plan[k].chunk) for k in ks],
+                [self.capacity(q, plan[k].leaf) for k in ks])
+            for k, f, s in zip(ks, first, streams):
+                plan[k] = plan[k]._replace(first=f, stream=s)
+        return plan
+
+    def _issue(self, c: _Call, plan: List[_Planned]) -> List[_Launch]:
+        """Issues the planned launches in order and counts them by route;
+        on the long route also the launches issued while an earlier long
+        launch of the round on another of the device's streams runs."""
+        launches: List[_Launch] = []
+        long_issued = [[] for _ in self.devices]
+        for p in plan:
+            ln = self._launch(p.chunk, p.padlen, c.prepared, c.metas, c.task,
+                              p.leaf, c.flen, c.xdrop, p.stream, p.device)
+            launches.append(ln)
+            self.stats["leaf_launches"] += int(p.leaf)
+            self.stats["long_launches"] += int(p.long)
+            self.stats["wide_launches"] += int(p.wide)
+            if p.long:
+                trace.count("launches_long")
+                trace.count("pairs_long_launched", len(p.chunk))
+                if any(o.stream != p.stream and not o.ready()
+                       for o in long_issued[p.device]):
+                    trace.count("launches_long_beside")
+                long_issued[p.device].append(ln)
+        return launches
+
+    def _drain(self, c: _Call, plan: List[_Planned],
+               launches: List[_Launch]) -> List[int]:
+        """Collects the round's launches as they finish, while the host
+        steals pairs from the tail of the launches outside the first wave
+        (of none under no_steal) onto the native kernel. Returns the pairs
+        the ladder sends back to the card."""
+        pending: List[int] = []
+        claims = _Claims([] if self.no_steal else
+                         [i for p in plan if not p.first for i in p.chunk])
+        stealers = [threading.Thread(target=self._steal, args=(c, claims))
+                    for _ in range(min(host_pool_size(self.option) - 1,
+                                       len(claims.stack)))]
+        for th in stealers:
+            th.start()
+        try:
+            waiting = list(launches)
+            while waiting:
+                ready = next((ln for ln in waiting if ln.ready()), None)
+                if ready is None:
+                    if self._steal(c, claims, once=True):
+                        continue
+                    if all(i in claims.claimed for ln in waiting
+                           for i in ln.chunk):
+                        break    # every pair left was stolen
+                    ready = waiting[0]
+                waiting.remove(ready)
+                self._collect(ready, c.results, c.prepared, c.task,
+                              claims.lock, claims.claimed, pending, c.flen,
+                              c.xdrop, c.note)
+            self._steal(c, claims)
+        finally:
+            for th in stealers:
+                th.join()
+        return pending
+
+    def _steal(self, c: _Call, claims: _Claims, once: bool = False) -> bool:
+        """Aligns the pairs the host takes from the claims' stack on the
+        host kernel, until the stack is empty or, with `once`, after one
+        pair. Returns whether it took any."""
+        took = False
+        while (i := claims.take()) is not None:
+            long_ = is_long(c.prepared[i][4])
+            with trace.span("batcher.steal_long" if long_
+                            else "batcher.steal", mark=False) as steal:
+                c.results[i] = self._host_align(c.prepared[i], c.metas[i],
+                                                c.task)
+            with claims.lock:
+                self.stats["host_stolen"] += 1
+                c.steal_ns += steal.ns
+            if long_:
+                trace.count("pairs_long_host")
+            c.note(i, c.results[i])
+            took = True
+            if once:
+                break
+        return took
 
     def _print_round(self, launches, routes) -> None:
         """The TWILIGHT_PROFILE lines of one round's launches (module

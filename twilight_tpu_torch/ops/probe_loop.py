@@ -113,7 +113,7 @@ def _launch(kind: str, trips: int, out: torch.Tensor,
             cluster: bool = False, offset: bool = False,
             walk_floor: int = WALK_FLOOR) -> None:
     from . import build
-    lib = build.load()
+    lib = build.load(build.PROBE)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = lib.probe_loop_launch(KERNEL_ID[kind], int(cluster), trips,
                                walk_floor, int(offset),
@@ -253,8 +253,8 @@ def attributes(name: str, layout: str = "cluster") -> dict:
     from . import build
     cluster = _layout(layout)
     out = (ctypes.c_int * 7)()
-    rc = build.load().probe_loop_attributes(KERNEL_ID[name], int(cluster),
-                                            out)
+    rc = build.load(build.PROBE).probe_loop_attributes(
+        KERNEL_ID[name], int(cluster), out)
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: "
                            f"{build.error_string(rc)} (cudaError {rc})")

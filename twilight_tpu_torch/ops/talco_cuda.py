@@ -53,6 +53,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from . import ladder
+
 I_BOUNDARY = -2
 D_BOUNDARY = -3
 I_BOUNDARY_LOW16 = I_BOUNDARY & 0xFFFF
@@ -103,7 +105,7 @@ def device_params(param, device) -> Tuple[torch.Tensor, dict]:
         param.scoring_matrix, dtype=np.float32)).to(device)
     scalars = {"gap_open": float(_F32(param.gap_open)),
                "gap_extend": float(_F32(param.gap_extend)),
-               "xdrop": int(1000 * -1 * param.gap_extend)}
+               "xdrop": ladder.start(param)[1]}
     return mat, scalars
 
 

@@ -15,18 +15,16 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 
 from .. import trace
-from ..config import MERGE_MSA, PLACE_WO_TREE, Options, Params
+from ..config import MERGE_MSA, PLACE_WO_TREE, Options, Params, host_pool_size
 from ..constants import profile_size
 from ..core.seqdb import SequenceDB
-from ..ops import talco_host, talco_np
+from ..ops import ladder, talco_host
 from . import helpers
-
-F32 = np.float32
 
 # Host DP seconds per profile column, measured once at startup on THIS
 # machine (one ~512-col pair through the active host kernel). Drives the
@@ -69,8 +67,8 @@ def host_s_per_col(option: Options, param: Params) -> float:
         ge = (np.full(n, param.gap_extend, np.float32),) * 2
         t0 = time.time()
         with trace.span("level.dp_host"):
-            _run_talco_with_retries(fr, fq, go, ge, (1.0, 1.0), (n, n),
-                                    param, False, 0, option)
+            ladder.run_talco_with_retries(fr, fq, go, ge, (1.0, 1.0),
+                                          (n, n), param, False, 0, option)
         _host_s_per_col = min(max((time.time() - t0) / (2 * n), 1e-6),
                               5e-4)
     except Exception:
@@ -115,38 +113,6 @@ def _prepare_pair(pair, database: SequenceDB, option: Options, param: Params):
     return freq_ref, freq_qry, (cons_r, cons_q), gappy, lens, gap_op, gap_ex
 
 
-def _run_talco_with_retries(freq_ref, freq_qry, gap_op, gap_ex, num, lens,
-                            param: Params, gap_char_zero: bool,
-                            current_task: int, option: Options
-                            ) -> Tuple[Optional[np.ndarray], bool]:
-    """Reference retry ladder (alignment-cpu.cpp:95-130). Returns
-    (path or None, needs_fallback)."""
-    tp = talco_np.TalcoRunParams(
-        matrix=param.scoring_matrix,
-        gap_open=param.gap_open,
-        gap_extend=param.gap_extend,
-        gap_char_score=0.0 if gap_char_zero else param.gap_extend,
-        xdrop=int(1000 * -1 * param.gap_extend))
-    impl = talco_np.align_freq
-    if option.device_backend != "numpy" and talco_host.available():
-        impl = talco_host.align_freq
-    while True:
-        aln, err = impl(tp, freq_ref, freq_qry, gap_op, gap_ex, num)
-        if err == 0 and len(aln):
-            return aln, False
-        if current_task == 0 and err != 0:
-            return None, True
-        if err == 2:
-            tp.flen = min(int(tp.flen * 1.2) << 1, min(lens[0], lens[1]))
-        elif err == 1:
-            tp.xdrop = int(tp.xdrop * 2)
-            tp.flen = min(int(tp.xdrop * 4) << 1, min(lens[0], lens[1]))
-        elif err == 3:
-            raise RuntimeError("TALCO index error (errorType 3)")
-        else:
-            return aln, False
-
-
 def _low_quality_flags(pair, database: SequenceDB, option: Options):
     ref, qry = pair
     low_r = False if (option.aln_mode == MERGE_MSA or ref.aln_num > 1) else \
@@ -154,11 +120,6 @@ def _low_quality_flags(pair, database: SequenceDB, option: Options):
     low_q = False if (option.aln_mode == MERGE_MSA or qry.aln_num > 1) else \
         database.sequences[qry.seqs_included[0]].low_quality
     return low_r, low_q
-
-
-def host_pool_size(option: Options) -> int:
-    return max(1, option.cpu_num if option.cpu_num > 0
-               else (os.cpu_count() or 1))
 
 
 def _precompute_host_paths(pairs, prepared, metas, database: SequenceDB,
@@ -185,12 +146,8 @@ def _precompute_host_paths(pairs, prepared, metas, database: SequenceDB,
         return {}
 
     def _one(i):
-        freq_ref, freq_qry, _, _, lens, gap_op, gap_ex = prepared[i]
-        _, _, rn, qn = metas[i]
-        gap_char_zero = (task == 1 or task == 2 or rn > 10000 or qn > 10000)
-        return _run_talco_with_retries(
-            freq_ref, freq_qry, gap_op, gap_ex, (float(rn), float(qn)),
-            lens, param, gap_char_zero, task, option)
+        return ladder.align_prepared(prepared[i], metas[i], task, param,
+                                     option)
 
     results = {}
     with ThreadPoolExecutor(
@@ -209,9 +166,7 @@ def _post_one(n_idx, pair, prep, meta, path, database: SequenceDB,
     (fallback append order feeds the deferred pass's unstable sort)."""
     ref, qry = pair
     ref_len, qry_len, ref_num, qry_num = meta
-    freq_ref, freq_qry, consensus, gappy, lens, gap_op, gap_ex = prep
-    gap_char_zero = (task == 1 or task == 2
-                     or ref_num > 10000 or qry_num > 10000)
+    consensus, gappy = prep[2], prep[3]
 
     aln_wo_gc: Optional[np.ndarray] = None
     if ref_len == 0:
@@ -226,11 +181,9 @@ def _post_one(n_idx, pair, prep, meta, path, database: SequenceDB,
             if path is None and recheck_none:
                 # the host ladder is the authority on deferral: confirm a
                 # device/steal failure before deferring the pair
-                num = (float(ref_num), float(qry_num))
                 with trace.span("level.dp_host", mark=False):
-                    path, needs_fallback = _run_talco_with_retries(
-                        freq_ref, freq_qry, gap_op, gap_ex, num, lens,
-                        param, gap_char_zero, task, option)
+                    path, needs_fallback = ladder.align_prepared(
+                        prep, meta, task, param, option)
                 if needs_fallback:
                     fallback_pairs.append(n_idx)
                     return

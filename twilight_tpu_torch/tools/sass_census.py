@@ -266,7 +266,7 @@ def listing() -> str:
     tool = cuobjdump_path()
     paths = [build.library_path(name) for name in build.SOURCES]
     if not all(os.path.exists(p) for p in paths):
-        build.load()
+        build.prebuild(())
     parts = []
     for path in paths:
         r = subprocess.run([tool, "-sass", path], capture_output=True,
